@@ -8,11 +8,18 @@ never jax or the reference package, and proves in one process that:
   1. environment: a CUDA card is present (else it exits non-zero and prints
      no result); prints the card's name and power limit, torch/CUDA/nvcc;
   2. build: the two-body kernel (ndpp_tpu_torch/csrc/twobody_inner.cu)
-     builds with nvcc for sm_90a from the checkout's sources;
+     builds with nvcc for sm_90a from the checkout's sources; ptxas's
+     registers and spills per kernel instance are printed;
   3. kernel vs plain: at the bench shape (2048 rows, P5, 361 groups, 16 GL
-     points; inputs from the port's prologue on fe56 rows) the kernel agrees
-     with its plain torch version within |k - p| <= 1e-14 + 1e-12 |p|
-     elementwise, and both are timed with CUDA events (median of 20);
+     points; panels from the port's prologue on fe56 rows) the fused kernel
+     agrees with its plain torch version (inner stage, then the group
+     epilogue) within |k - p| <= 1e-14 + 1e-12 |p| elementwise, on the dense
+     361-group table, on per-row B = 32 windows, and with clamp off. On the
+     dense table the kernel, the plain version and the torch epilogue alone
+     are timed in turns by CUDA events around CUDA-graph replays of 20 calls
+     (median of 2 x 10 replays), and the kernel also by CUDA events around
+     one eager call (median of 20), which puts the launch's host overhead on
+     the clock;
   4. end to end: ``driver.run(cfg, device="cuda")`` on a P5 /
      uniform-lethargy-361 deck over h1, fe56, o16 and six stress nuclides
      (two-body only; free-gas off) quarantines nothing, launches the kernel,
@@ -38,7 +45,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 KERNEL_SHAPE = {"rows": 2048, "order": 5, "groups": 361, "nq": 16}
 STRESS = (1, 3, 5, 12, 16, 19)
+BAND = 32  # per-row window width of the banded variant
 RTOL, ATOL = 1e-12, 1e-14  # kernel vs plain, elementwise
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+FP64_FLOPS_PER_S = 34e12  # H100 SXM FP64 outside the tensor cores
 LIB_RTOL, LIB_ATOL = 1e-8, 1e-14  # CUDA library vs CPU library
 P0_TOL = 1e-10
 
@@ -71,17 +81,28 @@ def environment():
 
 
 def build():
+    import re
+
     from ndpp_tpu_torch.ops import twobody_inner as inner_mod
 
     path, seconds = inner_mod.build()
     inner_mod.library()
     phase("build", f"{path.relative_to(ROOT)} built in {seconds:.2f} s")
+    name = "?"
+    for line in inner_mod.ptxas_report(path).read_text().splitlines():
+        entry = re.search(r"Compiling entry function '.*?twobody_group_kernelILi(\d+)ELi(\d+)E", line)
+        if entry:
+            name = f"L={entry.group(1)} nq={entry.group(2) if entry.group(2) != '0' else 'any'}"
+        elif "spill" in line or "Used" in line:
+            phase("build", f"ptxas {name}: {line.strip()}")
     return seconds
 
 
-def bench_inputs(device):
+def bench_inputs(device, band: int, clamp: bool, n_rows: int = KERNEL_SHAPE["rows"]):
     """The port's prologue on fe56 rows (every two-body reaction), tiled to
-    the bench row count: (mid, half, a_s, b_s, kin) on `device`."""
+    `n_rows` rows, against the 361-group table (band 0) or per-row windows of
+    `band` groups over each row's reach. Returns the fused kernel's
+    arguments (mid, half, a_s, b_s, kin, valid_e, bounds)."""
     import numpy as np
     import torch
 
@@ -95,7 +116,7 @@ def bench_inputs(device):
     e_grid = unionize.moment_grid(nuc.energy)
     preps = [prepare_twobody(nuc, r, e_grid) for r in nuc.scattering_reactions(include_fission=False)]
     k = unionize.bucket_pow2(max(p.knots.shape[1] for p in preps))
-    take = np.arange(KERNEL_SHAPE["rows"])
+    take = np.arange(n_rows)
 
     def rows(f):
         return np.concatenate([f(p) for p in preps])[take % sum(p.e.size for p in preps)]
@@ -105,14 +126,56 @@ def bench_inputs(device):
     pdf = rows(lambda p: unionize.pad_to(p.pdf, k, axis=1))
     c1, c2, awr = (rows(lambda p, a=a: np.full(p.e.size, getattr(p, a))) for a in ("c1", "c2", "awr"))
     bounds = groups.get(f"uniform-lethargy-{KERNEL_SHAPE['groups']}").bounds
+    if band:
+        # the lowest group each row reaches, E'_lab(mu = -1), one group of margin
+        ecm = np.maximum(c2 * (e - c1), 0.0)
+        lo = (np.sqrt(ecm) - np.sqrt(e) / (awr + 1.0)) ** 2
+        g0 = np.clip(np.searchsorted(bounds, lo, side="right") - 2, 0, bounds.size - 1 - band)
+        bounds = bounds[g0[:, None] + np.arange(band + 1)[None, :]]
     t = [torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float64, device=device) for x in (e, knots, pdf, bounds, c1, c2, awr)]
-    mid, half, a_s, b_s, base, slope, ecm, e_safe, ap1, _ = twobody_panels(*t, True)
+    mid, half, a_s, b_s, base, slope, ecm, e_safe, ap1, valid_e = twobody_panels(*t, clamp)
     kin = torch.stack([base, slope, torch.sqrt(ecm), torch.sqrt(e_safe) / ap1], dim=1)
-    return mid, half, a_s, b_s, kin
+    return mid, half, a_s, b_s, kin, valid_e, t[3]
 
 
-def time_ms(fn, n: int = 20) -> float:
-    """Median device time of fn() in ms over n runs, CUDA events around each."""
+def time_turns(fns: dict, n: int = 20, reps: int = 10) -> dict:
+    """Median device time in ms of one call of each fn. The n calls are
+    captured in one CUDA graph and the graph is replayed between CUDA events,
+    so host overhead (Python, the wrapper's checks, launch latency) stays out
+    of the time; turns (a, b, c, c, b, a) let drift of the card's clocks fall
+    on every function alike. Inputs stay in L2 across calls, as they do when
+    the prologue has just written them."""
+    import torch
+
+    graphs = {}
+    for name, fn in fns.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            for _ in range(n):
+                fn()
+    times = {name: [] for name in fns}
+    for name in list(fns) + list(reversed(fns)):
+        graphs[name].replay()
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            graphs[name].replay()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / n)
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def time_eager(fn, n: int = 20) -> float:
+    """Median time in ms of one eager call of fn, CUDA events around each of
+    n calls: the launch's host overhead is on the clock (the timing of the
+    `ms` series before time_turns)."""
     import torch
 
     for _ in range(3):
@@ -128,34 +191,95 @@ def time_ms(fn, n: int = 20) -> float:
     return statistics.median(times)
 
 
+def bound(args, order: int, nq: int, clamp: bool) -> tuple[float, str]:
+    """The least time the card could take for the fused kernel's work on
+    these inputs, the larger of two: bytes over the HBM rate, or f64
+    operations over the FP64 rate. Bytes: kin, valid_e and the bounds read
+    once; on each row above threshold (a row below is all zeros whatever its
+    panels hold) every half read once, to find the live subintervals
+    (half > 0), and mid, a_s, b_s of the live ones; the output written once.
+    Operations count the live subintervals inside the table: per GL node 15
+    flops of kinematics, pdf and weight (an FMA is 2, a min/max or rsqrt 1),
+    2 for P_1 and 6 per Bonnet step after it, and 2(L+1) per subinterval to
+    scale and sum; plus 2 per live subinterval for E'_lab(mid)."""
+    import torch
+
+    mid, half, a_s, b_s, kin, valid_e, bounds = args
+    t, s = mid.shape
+    ng = bounds.shape[-1] - 1
+    rows = int(valid_e.sum())
+    alive = (half > 0) & valid_e[:, None]
+    n_alive = int(alive.sum())
+    nbytes = (
+        sum(x.numel() * x.element_size() for x in (kin, valid_e, bounds))
+        + rows * s * 8 + 3 * n_alive * 8 + t * (order + 1) * ng * 8
+    )
+    elab = kin[:, 0:1] + kin[:, 1:2] * mid
+    b2 = bounds.expand(t, ng + 1).contiguous() if bounds.dim() == 1 else bounds
+    if clamp:
+        inside = torch.ones_like(elab, dtype=torch.bool)
+    else:
+        inside = (elab >= b2[:, :1]) & (elab < b2[:, -1:])
+    live = int((alive & inside).sum())
+    per_node = 15 + (2 if order >= 1 else 0) + 6 * max(order - 1, 0)
+    flops = live * (nq * per_node + 2 * (order + 1)) + 2 * n_alive
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP64_FLOPS_PER_S
+    phase("kernel", f"bound: {nbytes} B -> {t_bytes * 1e3:.5f} ms, {flops:.4e} f64 flops -> {t_ops * 1e3:.5f} ms "
+          f"({n_alive} live of {t * s} subintervals, {live} inside the table; {rows} of {t} rows above threshold)")
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def kernel_vs_plain(smi: str):
     import torch
 
-    from ndpp_tpu_torch.ops.twobody_inner import twobody_inner, twobody_inner_ref
+    from ndpp_tpu_torch.ops.twobody_inner import (
+        twobody_group_moments, twobody_group_moments_ref, twobody_inner_ref, twobody_scatter,
+    )
 
     order, nq = KERNEL_SHAPE["order"], KERNEL_SHAPE["nq"]
-    args = bench_inputs(torch.device("cuda", 0))
-    out = twobody_inner(*args, order, nq)
-    ref = twobody_inner_ref(*args, order, nq)
-    torch.cuda.synchronize()
-    err = (out - ref).abs()
-    bad = int((err > ATOL + RTOL * ref.abs()).sum())
-    max_abs = float(err.max())
-    max_rel = float((err / ref.abs().clamp_min(1e-300)).max())
-    if not bool(torch.isfinite(out).all()):
-        raise RuntimeError("kernel output has non-finite values")
-    shape = tuple(args[0].shape)
+    dev = torch.device("cuda", 0)
+    max_abs = 0.0
+    for label, band, clamp in (("dense", 0, True), (f"banded B={BAND}", BAND, True), ("dense clamp=False", 0, False)):
+        args = bench_inputs(dev, band, clamp)
+        out = twobody_group_moments(*args, order, nq, clamp)
+        ref = twobody_group_moments_ref(*args, order, nq, clamp)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"{label}: kernel output {tuple(out.shape)} is not finite or not {tuple(ref.shape)}")
+        err = (out - ref).abs()
+        bad = int((err > ATOL + RTOL * ref.abs()).sum())
+        max_abs = max(max_abs, float(err.max()))
+        phase(
+            "kernel",
+            f"twobody_group_moments {label} T,S={tuple(args[0].shape)} -> {tuple(out.shape)} L={order} nq={nq}: "
+            f"max_abs={float(err.max()):.3e} "
+            f"max_rel(|p| > {ATOL:g})={float((err / ref.abs())[ref.abs() > ATOL].max()):.3e} "
+            f"outside(|k-p| <= {ATOL:g} + {RTOL:g}|p|)={bad}",
+        )
+        if bad:
+            raise RuntimeError(f"{label}: kernel disagrees with its plain version on {bad} elements")
+
+    args = bench_inputs(dev, 0, True)
+    mid, half, a_s, b_s, kin, valid_e, bounds = args
+    m = twobody_inner_ref(mid, half, a_s, b_s, kin, order, nq)  # the (T, L+1, S) tensor the epilogue reads
+    ms = time_turns({
+        "kernel": lambda: twobody_group_moments(*args, order, nq, True),
+        "plain": lambda: twobody_group_moments_ref(*args, order, nq, True),
+        "epilogue": lambda: twobody_scatter(m, mid, half, kin[:, 0], kin[:, 1], valid_e, bounds, True),
+    })
+    eager_ms = time_eager(lambda: twobody_group_moments(*args, order, nq, True))
+    bound_ms, bound_by = bound(args, order, nq, True)
     phase(
         "kernel",
-        f"twobody_inner T,S={shape} L={order} nq={nq}: max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
-        f"outside(|k-p| <= {ATOL:g} + {RTOL:g}|p|)={bad}",
+        f"device time per call, median of 2 x 10 graph replays of 20 calls, in turns: "
+        f"fused kernel {ms['kernel']:.5f} ms, plain torch {ms['plain']:.5f} ms, "
+        f"torch epilogue alone {ms['epilogue']:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}) on {smi}",
     )
-    if bad:
-        raise RuntimeError(f"kernel disagrees with its plain version on {bad} elements")
-    ms = time_ms(lambda: twobody_inner(*args, order, nq))
-    plain_ms = time_ms(lambda: twobody_inner_ref(*args, order, nq))
-    phase("kernel", f"median of 20: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms on {smi}")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "shape": list(shape)}
+    phase("kernel", f"one eager call, CUDA events around it, median of 20: fused kernel {eager_ms:.5f} ms")
+    return {
+        "max_abs_err": max_abs, "ms": ms["kernel"], "plain_ms": ms["plain"], "epilogue_ms": ms["epilogue"],
+        "eager_ms": eager_ms, "bound_ms": bound_ms, "bound_by": bound_by, "shape": list(mid.shape),
+    }
 
 
 def write_fixtures(lib: Path) -> list[str]:
@@ -194,19 +318,19 @@ def end_to_end(work: Path):
 
     from ndpp_tpu_torch import driver
     from ndpp_tpu_torch.io.library import compare, read_ascii
-    from ndpp_tpu_torch.ops.twobody_inner import twobody_inner
+    from ndpp_tpu_torch.ops.twobody_inner import twobody_group_moments
 
     names = write_fixtures(work / "lib")
     cfg = deck(work / "lib", names, work / "cuda.txt")
     phase("e2e", f"{len(names)} nuclides, P{cfg.legendre_order}, {cfg.groups}, e_tile {cfg.device.e_tile}, "
           f"quad_points {cfg.device.quad_points}")
 
-    twobody_inner.launches = 0  # compare-phase launches above do not count
+    twobody_group_moments.launches = 0  # compare-phase launches above do not count
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     metrics = driver.run(cfg, device="cuda")
     wall = time.perf_counter() - t0
-    launches = twobody_inner.launches
+    launches = twobody_group_moments.launches
     phase(
         "e2e",
         f"cuda: wall {wall:.3f} s, {metrics.moments_computed} moments, "
@@ -261,14 +385,22 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="ndpp_chip_smoke_") as work:
         launches = end_to_end(Path(work))
     print(json.dumps({"kernels": [{
-        "name": "twobody_inner",
+        "name": "twobody_group_moments",
         "route": "cuda",
         "source": "ndpp_tpu_torch/csrc/twobody_inner.cu",
         "replaces": "ndpp_tpu/ops/twobody_pallas_dd.py:120",
         "launches": launches,
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
+        # ms, plain_ms, epilogue_ms: device time per call from graph replays
+        # (time_turns); eager_ms: CUDA events around one eager call (time_eager)
+        "timing": "cuda_graph_replay_x20_l2_warm",
+        "eager_ms": kern["eager_ms"],
         "plain_ms": kern["plain_ms"],
+        "bound_ms": kern["bound_ms"],
+        "bound_by": kern["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes these group moments
+        "epilogue_ms": kern["epilogue_ms"],
         "build_s": build_s,
         "shape": kern["shape"],
     }]}))

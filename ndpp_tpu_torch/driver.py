@@ -3,7 +3,7 @@
 Counterpart of ndpp_tpu/driver.py:
 
     cli.run -> config.load -> host parse (ACE) -> host prep
-      -> device: two-body moments (ops.twobody, inner stage on the CUDA kernel)
+      -> device: two-body moments (ops.twobody, group moments on the CUDA kernel)
       -> host write (HDF5/ASCII)
 
 Per-nuclide failures are quarantined rather than fatal (SURVEY.md section
@@ -106,8 +106,9 @@ def _tiled_twobody_multi(preps, bounds, order, nq, tile_cap, metrics, clamp, dev
     is narrow (see _band_windows).
 
     The kernel takes per-row (c1, c2, awr), so rows from different
-    reactions concatenate freely. Every tile is enqueued on the device
-    before any result is copied back.
+    reactions concatenate freely. Every tile's result is copied back into
+    pinned host memory on the device's stream as soon as it is enqueued, and
+    the host waits once, after the last tile.
 
     preps: list of TwoBodyPrepared. Returns a list of (moments, g0) pairs:
     g0 is None for dense (NE_i, L+1, G) results, else the (NE_i,) window
@@ -162,10 +163,14 @@ def _tiled_twobody_multi(preps, bounds, order, nq, tile_cap, metrics, clamp, dev
                     nq,
                     clamp,
                 )
-                pending.append((buf, start, length, res))
+                # from the card, a non-blocking copy lands in pinned host memory
+                # and does not wait; from the CPU it returns `res` itself
+                pending.append((buf, start, length, res.to("cpu", non_blocking=True)))
     with RunMetrics.span_or_null(metrics, "wait.twobody"):
-        for buf, start, length, res in pending:
-            buf[start : start + length] = res.cpu().numpy()
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()  # once, for every tile's copy
+        for buf, start, length, host in pending:
+            buf[start : start + length] = host.numpy()
     for buf, g0_all, i, off in slices:
         n_i = preps[i].e.size
         g0_i = None if g0_all is None else g0_all[off : off + n_i]
@@ -364,14 +369,14 @@ def run(cfg: RunConfig, device: str | torch.device = "cuda") -> RunMetrics:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
         log.info(
-            "device %s (%s): device.precision=%r runs native float64; the two-body "
-            "inner stage runs the CUDA kernel csrc/twobody_inner.cu",
+            "device %s (%s): device.precision=%r runs native float64; two-body group "
+            "moments run the CUDA kernel csrc/twobody_inner.cu",
             dev, torch.cuda.get_device_name(dev), cfg.device.precision,
         )
     else:
         log.info(
-            "device cpu: device.precision=%r runs native float64; the two-body inner "
-            "stage runs its plain torch version", cfg.device.precision,
+            "device cpu: device.precision=%r runs native float64; two-body group "
+            "moments run the kernel's plain torch version", cfg.device.precision,
         )
 
     gs = cfg.group_structure()

@@ -14,9 +14,9 @@ crosses a p(mu) knot or a group boundary, which is what makes 1e-8
 attainable:
 
   edges = sort( knots(E) ++ breakpoints(E) ++ graded -1 ladder )
-  each subinterval integrates p(mu) P_l(mu_lab) with GL (the inner stage,
-  ops/twobody_inner.py) and is summed into its single outgoing group
-  (ops/segment.py).
+  each subinterval integrates p(mu) P_l(mu_lab) with GL and is summed into
+  its single outgoing group (ops/twobody_inner.py: one fused kernel on a
+  CUDA device, the inner stage then ops/segment.py on the CPU).
 
 All tensors are float64 on the caller's device.
 """
@@ -26,8 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ndpp_tpu_torch.ops.segment import segment_group_sum
-from ndpp_tpu_torch.ops.twobody_inner import twobody_inner
+from ndpp_tpu_torch.ops.twobody_inner import twobody_group_moments
 
 # Graded refinement near mu_cm = -1: when E'_lab(-1) ~ 0 (elastic on A ~ 1,
 # or near-threshold levels), mu_lab(mu_cm) has a sqrt-type endpoint
@@ -112,19 +111,6 @@ def twobody_panels(e, knots, pdf, bounds, c1, c2, awr, clamp: bool):
     return mid, half, a_s, b_s, base, slope, ecm, e_safe, ap1, valid_e
 
 
-def twobody_scatter(m, mid, half, base, slope, valid_e, bounds, clamp: bool):
-    """Shared epilogue: (T, L+1, S) subinterval moments -> (T, L+1, G).
-
-    E'_lab(mid) is ascending along the sorted subinterval axis (slope > 0),
-    so group indices are NON-DECREASING per row and the group sums are
-    contiguous segments (ops.segment.segment_group_sum).
-    """
-    elab_mid = base[:, None] + slope[:, None] * mid  # (T, S)
-    valid = (half > 0.0) & valid_e[:, None]
-    m = m * valid[:, None, :]
-    return segment_group_sum(m, elab_mid, bounds, clamp)
-
-
 def twobody_moments(e, knots, pdf, bounds, c1, c2, awr, order: int, nq: int = 16, clamp: bool = True):
     """Group-transfer Legendre moments for one two-body reaction.
 
@@ -149,15 +135,15 @@ def twobody_moments(e, knots, pdf, bounds, c1, c2, awr, order: int, nq: int = 16
       event, of P_l(mu_lab) joint with outgoing energy in group g'. Rows
       with E below threshold are all zero.
 
-    The inner stage runs the hand-written CUDA kernel on a CUDA device and
-    its plain torch version on the CPU (ops.twobody_inner.twobody_inner).
+    After the prologue, a CUDA device runs one hand-written kernel that goes
+    from the panels straight to group moments; the CPU runs its plain torch
+    version (ops.twobody_inner.twobody_group_moments).
     """
     mid, half, a_s, b_s, base, slope, ecm, e_safe, ap1, valid_e = twobody_panels(
         e, knots, pdf, bounds, c1, c2, awr, clamp
     )
     kin = torch.stack([base, slope, torch.sqrt(ecm), torch.sqrt(e_safe) / ap1], dim=1)  # (T, 4)
-    m = twobody_inner(mid, half, a_s, b_s, kin, order, nq)  # (T, L+1, S)
-    return twobody_scatter(m, mid, half, base, slope, valid_e, bounds, clamp)
+    return twobody_group_moments(mid, half, a_s, b_s, kin, valid_e, bounds, order, nq, clamp)
 
 
 def twobody_constants(awr: float, q_ev: float) -> tuple[float, float]:
