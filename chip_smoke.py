@@ -20,12 +20,21 @@ never jax or the reference package, and proves in one process that:
      (median of 2 x 10 replays), and the kernel also by CUDA events around
      one eager call (median of 20), which puts the launch's host overhead on
      the clock;
-  4. end to end: ``driver.run(cfg, device="cuda")`` on a P5 /
-     uniform-lethargy-361 deck over h1, fe56, o16 and six stress nuclides
-     (two-body only; free-gas off) quarantines nothing, launches the kernel,
-     writes finite moments whose P0 rows sum to 1 within 1e-10 wherever
+  4. the two-body deck: ``driver.run(cfg, device="cuda")`` on a P5 /
+     uniform-lethargy-361 deck over h1, fe56, o16 and two stress nuclides
+     (two-body only; free-gas off; until the continuum deck joined, this
+     deck held six stress nuclides: four were cut to keep the script's time)
+     quarantines nothing, launches the kernel, writes finite moments whose
+     P0 rows sum to the mean yield (1 here) within 1e-10 wherever
      sigma_scatter > 0, and matches the same deck run on the CPU (plain
-     path) under the library comparator at rtol 1e-8, atol 1e-14.
+     path) under the library comparator at rtol 1e-8, atol 1e-14;
+  5. the continuum and chi deck, same width, over kalbach, law61, law61cm,
+     law67, law4nd, nbody, law1, law5, u235, maxwell, evap and watt (every
+     continuum law kind and both chi paths, each beside elastic and level
+     inelastic reactions on the two-body kernel), held to the same checks,
+     plus chi rows (prompt, delayed, total) summing to 1 within 1e-10 where
+     the spectrum is not empty (analytic rows below the restriction energy U
+     are 0), and compared whole with its CPU run at rtol 1e-8, atol 1e-14.
 
 The line before the last is a JSON object describing each kernel of the
 path; the last line is {"ok": true, "device": {...}}. Any failed phase
@@ -44,13 +53,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 KERNEL_SHAPE = {"rows": 2048, "order": 5, "groups": 361, "nq": 16}
-STRESS = (1, 3, 5, 12, 16, 19)
+TWOBODY_FIXTURES = ("h1", "fe56", "o16")
+STRESS = (1, 12)  # stress_nuclide indices of the two-body deck (a dense and a banded elastic pool)
+CONTINUUM_FIXTURES = (
+    "kalbach", "law61", "law61cm", "law67", "law4nd", "nbody", "law1", "law5", "u235", "maxwell", "evap", "watt",
+)
 BAND = 32  # per-row window width of the banded variant
 RTOL, ATOL = 1e-12, 1e-14  # kernel vs plain, elementwise
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP64_FLOPS_PER_S = 34e12  # H100 SXM FP64 outside the tensor cores
 LIB_RTOL, LIB_ATOL = 1e-8, 1e-14  # CUDA library vs CPU library
-P0_TOL = 1e-10
+P0_TOL = 1e-10  # P0 row sums against the mean yield, chi row sums against 1
 
 
 def phase(name: str, msg: str) -> None:
@@ -282,12 +295,12 @@ def kernel_vs_plain(smi: str):
     }
 
 
-def write_fixtures(lib: Path) -> list[str]:
+def write_fixtures(lib: Path, keys=TWOBODY_FIXTURES, stress=STRESS) -> list[str]:
     from ndpp_tpu_torch.host.ace import synth
     from ndpp_tpu_torch.host.ace.write import write_ace
 
     lib.mkdir(parents=True, exist_ok=True)
-    nucs = [synth.build(k) for k in ("h1", "fe56", "o16")] + [synth.stress_nuclide(i) for i in STRESS]
+    nucs = [synth.build(k) for k in keys] + [synth.stress_nuclide(i) for i in stress]
     lines = []
     for nuc in nucs:
         p = write_ace(nuc, lib / f"{nuc.name}.ace")
@@ -312,67 +325,136 @@ def deck(lib: Path, names: list[str], out: Path):
     return cfg
 
 
-def end_to_end(work: Path):
-    import numpy as np
+def run_on_card(tag: str, cfg, n_nuclides: int):
+    """driver.run on the card with the kernel's count set to 0 just before and
+    read just after; raises on a quarantine or on a run that never launched
+    the kernel. Returns (metrics, launches, wall seconds)."""
     import torch
 
     from ndpp_tpu_torch import driver
-    from ndpp_tpu_torch.io.library import compare, read_ascii
     from ndpp_tpu_torch.ops.twobody_inner import twobody_group_moments
 
-    names = write_fixtures(work / "lib")
-    cfg = deck(work / "lib", names, work / "cuda.txt")
-    phase("e2e", f"{len(names)} nuclides, P{cfg.legendre_order}, {cfg.groups}, e_tile {cfg.device.e_tile}, "
-          f"quad_points {cfg.device.quad_points}")
-
-    twobody_group_moments.launches = 0  # compare-phase launches above do not count
+    twobody_group_moments.launches = 0  # launches of the compare phase and of other decks do not count
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     metrics = driver.run(cfg, device="cuda")
     wall = time.perf_counter() - t0
     launches = twobody_group_moments.launches
     phase(
-        "e2e",
+        tag,
         f"cuda: wall {wall:.3f} s, {metrics.moments_computed} moments, "
         f"{metrics.moments_computed / wall:.4e} moments/s, done {metrics.nuclides_done}, "
         f"quarantined {metrics.nuclides_quarantined}, kernel launches {launches}, "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B",
+        f"max_memory_allocated {metrics.device_mem_highwater_bytes} B",
     )
-    phase("e2e", "cuda phase seconds: " + json.dumps({k: round(v, 4) for k, v in metrics.phase_seconds.items()}))
-    if metrics.nuclides_quarantined or metrics.nuclides_done != len(names):
+    phase(tag, "cuda phase seconds: " + json.dumps({k: round(v, 4) for k, v in metrics.phase_seconds.items()}))
+    if metrics.nuclides_quarantined or metrics.nuclides_done != n_nuclides:
         raise RuntimeError(f"{metrics.nuclides_quarantined} nuclide(s) quarantined on the card")
     if launches <= 0:
-        raise RuntimeError("the end-to-end run never launched the two-body kernel")
+        raise RuntimeError("the run never launched the two-body kernel")
+    return metrics, launches, wall
 
-    datasets, attrs = read_ascii(cfg.output.path)
-    worst_p0 = 0.0
+
+def mean_yield(nuc, energy):
+    """sum_MT sigma_MT y_MT / sigma_scatter on `energy`: what a P0 row sums to
+    (1 unless a reaction emits more than one neutron, as (n,2n) does)."""
+    import numpy as np
+
+    from ndpp_tpu_torch.driver import reaction_yield
+
+    num = den = 0.0
+    for rxn in nuc.scattering_reactions(include_fission=False):
+        sig = np.interp(energy, nuc.energy, nuc.sigma_on_grid(rxn))
+        num = num + sig * reaction_yield(rxn, energy, True)
+        den = den + sig
+    return np.where(den > 0, num / np.where(den > 0, den, 1.0), 1.0)
+
+
+def check_library(tag: str, path, lib: Path, names: list[str]) -> None:
+    """Every moment finite; P0 rows sum to the mean yield wherever
+    sigma_scatter > 0; chi rows sum to 1 where the spectrum is not empty.
+    The yields are read from the ACE files under `lib` that the run parsed."""
+    import numpy as np
+
+    from ndpp_tpu_torch.host.ace.parse import read_ace
+    from ndpp_tpu_torch.io.library import read_ascii
+
+    datasets, _ = read_ascii(path)
+    worst_p0 = worst_chi = 0.0
+    chi_rows = 0
     for name in names:
+        nuc = read_ace(lib / f"{name}.ace", name_hint=name)
         sc = datasets[f"/nuclides/{name}/scatter"]
         sig = datasets[f"/nuclides/{name}/sigma_scatter"]
+        energy = datasets[f"/nuclides/{name}/energy"]
         if not np.isfinite(sc).all():
             raise RuntimeError(f"{name}: non-finite moments")
-        p0 = sc[:, :, 0, :].sum(axis=2)[:, sig > 0]
-        worst_p0 = max(worst_p0, float(np.abs(p0 - 1.0).max()))
-    phase("e2e", f"all moments finite; max |P0 row sum - 1| = {worst_p0:.3e} (limit {P0_TOL:g})")
-    if worst_p0 > P0_TOL:
-        raise RuntimeError("P0 rows do not sum to 1")
+        p0 = sc[:, :, 0, :].sum(axis=2) - mean_yield(nuc, energy)[None, :]
+        worst_p0 = max(worst_p0, float(np.abs(p0[:, sig > 0]).max()))
+        for ds in ("chi_prompt", "chi_delayed", "chi_total"):
+            chi = datasets.get(f"/nuclides/{name}/{ds}")
+            if chi is None:
+                continue
+            if not np.isfinite(chi).all():
+                raise RuntimeError(f"{name}: non-finite {ds}")
+            sums = chi.sum(axis=1)
+            live = sums > 0
+            chi_rows += int(live.sum())
+            worst_chi = max(worst_chi, float(np.abs(sums[live] - 1.0).max()))
+        if nuc.fissionable and f"/nuclides/{name}/chi_total" not in datasets:
+            raise RuntimeError(f"{name}: fissionable but the library holds no chi")
+    phase(tag, f"all moments finite; max |P0 row sum - mean yield| = {worst_p0:.3e}, "
+          f"max |chi row sum - 1| = {worst_chi:.3e} over {chi_rows} non-empty chi rows (limit {P0_TOL:g})")
+    if worst_p0 > P0_TOL or worst_chi > P0_TOL:
+        raise RuntimeError("P0 or chi rows do not sum to what they must")
 
-    cpu_cfg = deck(work / "lib", names, work / "cpu.txt")
+
+def compare_with_cpu(tag: str, cuda_cfg, cpu_cfg) -> None:
+    """Run cpu_cfg's deck on the CPU (plain path) and hold cuda_cfg's library to it."""
+    from ndpp_tpu_torch import driver
+    from ndpp_tpu_torch.io.library import compare
+
     t0 = time.perf_counter()
     cpu_metrics = driver.run(cpu_cfg, device="cpu")
-    phase("e2e", f"cpu (plain path): wall {time.perf_counter() - t0:.3f} s, done {cpu_metrics.nuclides_done}")
-    report = compare(cfg.output.path, cpu_cfg.output.path, rtol=LIB_RTOL, atol=LIB_ATOL)
-    sc = [v for k, v in report["datasets"].items() if k.endswith("/scatter")]
-    max_rel = max(v["max_rel"] for v in sc)
-    max_abs = max(v["max_abs"] for v in sc)
+    phase(tag, f"cpu (plain path): wall {time.perf_counter() - t0:.3f} s, done {cpu_metrics.nuclides_done}, "
+          f"quarantined {cpu_metrics.nuclides_quarantined}")
+    report = compare(cuda_cfg.output.path, cpu_cfg.output.path, rtol=LIB_RTOL, atol=LIB_ATOL)
+    worst = {
+        kind: max((v["max_abs"] for k, v in report["datasets"].items() if kind in k.rsplit("/", 1)[-1]), default=0.0)
+        for kind in ("scatter", "chi")
+    }
     phase(
-        "e2e",
-        f"cuda vs cpu library: match={report['match']} (rtol {LIB_RTOL:g}, atol {LIB_ATOL:g}) "
-        f"scatter max_abs={max_abs:.3e} max_rel={max_rel:.3e}",
+        tag,
+        f"cuda vs cpu library: match={report['match']} (rtol {LIB_RTOL:g}, atol {LIB_ATOL:g}) over "
+        f"{len(report['datasets'])} datasets, scatter max_abs={worst['scatter']:.3e}, chi max_abs={worst['chi']:.3e}",
     )
-    if not report["match"]:
+    if cpu_metrics.nuclides_quarantined or not report["match"]:
         failing = {k: v for k, v in report["datasets"].items() if not v.get("ok", False)}
         raise RuntimeError(f"CUDA and CPU libraries differ: {failing} missing={report['missing']}")
+
+
+def twobody_deck(work: Path) -> int:
+    names = write_fixtures(work / "lib")
+    cfg = deck(work / "lib", names, work / "cuda.txt")
+    phase("e2e", f"{len(names)} nuclides (h1, fe56, o16, stress {STRESS}), P{cfg.legendre_order}, {cfg.groups}, "
+          f"e_tile {cfg.device.e_tile}, quad_points {cfg.device.quad_points}")
+    _, launches, _ = run_on_card("e2e", cfg, len(names))
+    check_library("e2e", cfg.output.path, work / "lib", names)
+    compare_with_cpu("e2e", cfg, deck(work / "lib", names, work / "cpu.txt"))
+    return launches
+
+
+def continuum_deck(work: Path) -> int:
+    lib = work / "contlib"
+    names = write_fixtures(lib, CONTINUUM_FIXTURES, ())
+    cfg = deck(lib, names, work / "cont_cuda.txt")
+    phase("cont", f"{len(names)} nuclides ({', '.join(CONTINUUM_FIXTURES)}), P{cfg.legendre_order}, {cfg.groups}, "
+          f"e_tile {cfg.device.e_tile}, quad_points {cfg.device.quad_points}")
+    metrics, launches, _ = run_on_card("cont", cfg, len(names))
+    phase("cont", "chunk (outer panels at a time) -> cm_moments_pointwise tiles: "
+          + json.dumps({str(k): v for k, v in sorted(metrics.continuum_chunks.items())}))
+    check_library("cont", cfg.output.path, lib, names)
+    compare_with_cpu("cont", cfg, deck(lib, names, work / "cont_cpu.txt"))
     return launches
 
 
@@ -383,13 +465,14 @@ def main() -> int:
     build_s = build()
     kern = kernel_vs_plain(smi)
     with tempfile.TemporaryDirectory(prefix="ndpp_chip_smoke_") as work:
-        launches = end_to_end(Path(work))
+        by_deck = {"twobody": twobody_deck(Path(work)), "continuum": continuum_deck(Path(work))}
     print(json.dumps({"kernels": [{
         "name": "twobody_group_moments",
         "route": "cuda",
         "source": "ndpp_tpu_torch/csrc/twobody_inner.cu",
         "replaces": "ndpp_tpu/ops/twobody_pallas_dd.py:120",
-        "launches": launches,
+        "launches": sum(by_deck.values()),  # each deck counted from 0, read right after its run
+        "launches_by_deck": by_deck,
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         # ms, plain_ms, epilogue_ms: device time per call from graph replays

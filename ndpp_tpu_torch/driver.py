@@ -1,21 +1,21 @@
-"""Per-nuclide processing pipeline and run driver (two-body slice).
+"""Per-nuclide processing pipeline and run driver.
 
 Counterpart of ndpp_tpu/driver.py:
 
     cli.run -> config.load -> host parse (ACE) -> host prep
-      -> device: two-body moments (ops.twobody, group moments on the CUDA kernel)
+      -> device: two-body moments (ops.twobody, group moments on the CUDA kernel),
+                 continuum moments (continuum_driver -> ops.continuum),
+                 fission chi (chi_driver -> ops.chi)
       -> host write (HDF5/ASCII)
 
 Per-nuclide failures are quarantined rather than fatal (SURVEY.md section
 5 'failure detection'): the sweep is a bag of independent tasks.
 
-This slice ports the two-body family (elastic MT 2 and discrete-level law-3
-inelastic). What it does not port fails loudly, never silently:
-
-  - free-gas (ROADMAP A9) or S(alpha,beta) (A10) in the deck: ``run`` raises
-    ConfigError before the sweep;
-  - a continuum scattering law (A8) or fission (A11) in a nuclide: that
-    nuclide is quarantined with the reason.
+Ported: the two-body family (elastic MT 2 and discrete-level law-3
+inelastic), the continuum laws (1, 4, 5, 44, 61, 66, 67 and the analytic 7,
+9, 11) and the fission chi collapse. What is not ported fails loudly, never
+silently: with free-gas (ROADMAP A9) or S(alpha,beta) (A10) in the deck,
+``run`` raises ConfigError before the sweep.
 """
 
 from __future__ import annotations
@@ -27,7 +27,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ndpp_tpu_torch.chi_driver import chi_collapse
 from ndpp_tpu_torch.config import RunConfig
+from ndpp_tpu_torch.continuum_driver import batched_continuum_moments
 from ndpp_tpu_torch.groups import GroupStructure
 from ndpp_tpu_torch.host import library_index, unionize
 from ndpp_tpu_torch.host.ace.parse import read_ace
@@ -163,14 +165,9 @@ def _tiled_twobody_multi(preps, bounds, order, nq, tile_cap, metrics, clamp, dev
                     nq,
                     clamp,
                 )
-                # from the card, a non-blocking copy lands in pinned host memory
-                # and does not wait; from the CPU it returns `res` itself
-                pending.append((buf, start, length, res.to("cpu", non_blocking=True)))
+                pending.append((buf, start, length, rows_mod.fetch_rows(res)))
     with RunMetrics.span_or_null(metrics, "wait.twobody"):
-        if device.type == "cuda":
-            torch.cuda.current_stream(device).synchronize()  # once, for every tile's copy
-        for buf, start, length, host in pending:
-            buf[start : start + length] = host.numpy()
+        rows_mod.land_rows(pending, device)  # one wait, for every tile's copy
     for buf, g0_all, i, off in slices:
         n_i = preps[i].e.size
         g0_i = None if g0_all is None else g0_all[off : off + n_i]
@@ -194,9 +191,6 @@ def scattering_moments(
     Returns (moments (NE, L+1, G), sigma_scatter (NE,)). (The reference
     also returns the unweighted elastic moments for its free-gas pass;
     that returns with free-gas, ROADMAP A9.)
-
-    Raises NdppError for a scattering reaction that is not two-body: the
-    continuum family is not ported yet (ROADMAP A8).
     """
     log = log_mod.get()
     rxns = nuc.scattering_reactions(include_fission=False)
@@ -228,6 +222,7 @@ def scattering_moments(
         ] += wy * mom
 
     tb_items: list[tuple[Reaction, int, object]] = []
+    cont_items: list[tuple[Reaction, int]] = []
     for rxn in rxns:
         # Threshold-row restriction: a reaction only contributes where
         # sigma_MT > 0, so the kernels run on e_grid[i0:] only (one margin
@@ -238,19 +233,26 @@ def scattering_moments(
         if nz.size == 0:
             log.debug("MT=%d skipped: sigma == 0 on the whole grid", rxn.mt)
             continue
-        if not is_twobody(rxn):
-            laws = [d.law for d in rxn.energy_dists]
-            raise NdppError(
-                f"{nuc.name}: MT={rxn.mt} (energy laws {laws}) is a continuum reaction, "
-                "not yet ported (ROADMAP A8)"
-            )
         i0 = max(int(nz[0]) - 1, 0)
         sub = e_grid[i0:]
-        # collected, then dispatched as ONE batched row pool per knot bucket
-        with RunMetrics.span_or_null(metrics, "prep.twobody"):
-            prep = prepare_twobody(nuc, rxn, sub)
-        tb_items.append((rxn, i0, prep))
+        if is_twobody(rxn):
+            # collected, then dispatched as ONE batched row pool per knot bucket
+            with RunMetrics.span_or_null(metrics, "prep.twobody"):
+                prep = prepare_twobody(nuc, rxn, sub)
+            tb_items.append((rxn, i0, prep))
+        else:
+            # collected, then dispatched with cross-reaction law pooling
+            # (continuum_driver.batched_continuum_moments): all cm-kalbach /
+            # lab-tabular laws of a nuclide sharing a knot bucket ride one
+            # tiled dispatch set
+            cont_items.append((rxn, i0))
         log.debug("MT=%d queued (%d/%d rows)", rxn.mt, sub.size, ne)
+    if cont_items:
+        moms = batched_continuum_moments(
+            nuc, [(rxn, e_grid[i0:]) for rxn, i0 in cont_items], gs, order, cfg, device, metrics
+        )
+        for (rxn, i0), mom in zip(cont_items, moms):
+            _accumulate(rxn, i0, mom)
     if tb_items:
         outs = _tiled_twobody_multi(
             [p for _, _, p in tb_items], gs.bounds, order, cfg.device.quad_points,
@@ -268,14 +270,12 @@ def process_nuclide(
     device: torch.device,
     metrics: RunMetrics | None = None,
 ) -> NuclideResult:
-    """Full single-nuclide pipeline -> NuclideResult (two-body slice).
+    """Full single-nuclide pipeline -> NuclideResult.
 
     Free-gas and S(alpha,beta) are excluded by ``run`` before the sweep, so
     the 0K moments are every temperature's result, as in the reference with
     free-gas off.
     """
-    if nuc.fissionable:
-        raise NdppError(f"{nuc.name}: fission chi spectra are not yet ported (ROADMAP A11)")
     e_grid = unionize.moment_grid(nuc.energy)
     if cfg.thin_tol > 0:
         keep = unionize.thin_grid(e_grid, np.stack([nuc.sigma_t, nuc.sigma_el]), cfg.thin_tol)
@@ -295,6 +295,8 @@ def process_nuclide(
         scatter=scatter,
         sigma_scatter=sigma_s,
     )
+    if nuc.fissionable:
+        chi_collapse(res, nuc, gs, cfg, device, metrics)
     if metrics is not None:
         metrics.moments_computed += scatter.size
     return res
@@ -370,7 +372,7 @@ def run(cfg: RunConfig, device: str | torch.device = "cuda") -> RunMetrics:
         torch.cuda.reset_peak_memory_stats(dev)
         log.info(
             "device %s (%s): device.precision=%r runs native float64; two-body group "
-            "moments run the CUDA kernel csrc/twobody_inner.cu",
+            "moments run the CUDA kernel csrc/twobody_inner.cu, continuum and chi run torch ops",
             dev, torch.cuda.get_device_name(dev), cfg.device.precision,
         )
     else:

@@ -105,6 +105,35 @@ def merge_linlin(
     return knots, out1, out2
 
 
+def angular_panel_blocks(dist: AngularDistribution, e_grid: np.ndarray):
+    """Yield (row_idx, knots, v1, v2, t) per bracketing angular panel.
+
+    All rows in one panel share the merged knot set; the row pdf is
+    `(1-t) v1 + t v2` (UNNORMALIZED — callers divide by the trapezoid
+    norm, itself linear in t). Single-table distributions yield one block
+    with v2 == v1 and t == 0. This is the O(panels) vectorization spine
+    shared by the continuum AND-block payload builders.
+    """
+    es = dist.energies
+    panel_of = np.clip(np.searchsorted(es, e_grid, side="right") - 1, 0, max(es.size - 2, 0))
+    for p in np.unique(panel_of):
+        idx = np.where(panel_of == p)[0]
+        if es.size == 1:
+            x, y = linlin_rep(dist.tables[0])
+            yield idx, x, y, y, np.zeros(idx.size)
+            continue
+        x1, y1 = linlin_rep(dist.tables[p])
+        x2, y2 = linlin_rep(dist.tables[p + 1])
+        knots, v1, v2 = merge_linlin(x1, y1, x2, y2)
+        denom = es[p + 1] - es[p]
+        t = (
+            np.clip((e_grid[idx] - es[p]) / denom, 0.0, 1.0)
+            if denom > 0
+            else np.zeros(idx.size)
+        )
+        yield idx, knots, v1, v2, t
+
+
 @dataclass
 class TwoBodyPrepared:
     """Device-ready inputs for ops.twobody.twobody_moments for one reaction."""

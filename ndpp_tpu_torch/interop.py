@@ -27,6 +27,37 @@ def twobody_inputs(e, knots, pdf, bounds, c1, c2, awr, *, device):
     return tuple(_f64(x, dev) for x in (e, knots, pdf, bounds, c1, c2, awr))
 
 
+_CONTINUUM_FIELDS = (
+    "e", "e_knots", "pdf", "mom_knots", "r_rows", "a_rows", "mu_knots", "mu_pdf", "nbody_emax",
+)
+
+
+def continuum_inputs(prep, bounds, *, device) -> dict:
+    """The tensors of a ContinuumPrepared (host.prep_continuum, of either
+    package: its fields are numpy arrays) for ops.continuum, as float64 on
+    `device`, keyed by field name, plus "bounds". A field the law kind does
+    not carry stays None."""
+    dev = torch.device(device)
+    out = {f: None if getattr(prep, f) is None else _f64(getattr(prep, f), dev) for f in _CONTINUUM_FIELDS}
+    out["bounds"] = _f64(bounds, dev)
+    return out
+
+
+def chi_inputs(prep, bounds, *, device) -> tuple:
+    """Arguments of the ops.chi function that collapses this spectrum, from a
+    ContinuumPrepared of either package: (e, theta, b, u, bounds, law) for
+    analytic_group_fractions on a 'lab-analytic' law, else (e_knots, pdf,
+    bounds) for tabular_group_fractions."""
+    dev = torch.device(device)
+    if prep.kind == "lab-analytic":
+        x = prep.extra
+        return (
+            _f64(prep.e, dev), _f64(x["theta"], dev), _f64(x["b"], dev), float(x["u"]), _f64(bounds, dev),
+            int(x["law"]),
+        )
+    return _f64(prep.e_knots, dev), _f64(prep.pdf, dev), _f64(bounds, dev)
+
+
 def group_structure(name: str, bounds) -> GroupStructure:
     """A GroupStructure with the given ascending boundaries (eV)."""
     return GroupStructure(name=name, bounds=np.asarray(bounds, dtype=np.float64))

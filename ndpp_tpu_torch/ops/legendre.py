@@ -31,3 +31,14 @@ def legendre_all(x: torch.Tensor, order: int) -> torch.Tensor:
     for l in range(1, order):
         ps.append(((2 * l + 1) * x * ps[l] - l * ps[l - 1]) / (l + 1))
     return torch.stack(ps, dim=-1)
+
+
+def legendre_all_np(x: np.ndarray, order: int) -> np.ndarray:
+    """Numpy twin of legendre_all (host-side exact angular moments)."""
+    x = np.asarray(x, dtype=np.float64)
+    ps = [np.ones_like(x)]
+    if order >= 1:
+        ps.append(x)
+    for l in range(1, order):
+        ps.append(((2 * l + 1) * x * ps[l] - l * ps[l - 1]) / (l + 1))
+    return np.stack(ps, axis=-1)

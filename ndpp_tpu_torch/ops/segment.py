@@ -23,6 +23,16 @@ from __future__ import annotations
 import torch
 
 
+def effective_bounds(bounds: torch.Tensor, clamp: bool) -> torch.Tensor:
+    """Integration bounds under the clamp convention: with clamp the outermost
+    boundaries move to -+inf, so the edge groups absorb out-of-range mass.
+    bounds: shared (G+1,) or per-row (T, B+1) band windows."""
+    if not clamp:
+        return bounds
+    inf = torch.full(bounds.shape[:-1] + (1,), torch.inf, dtype=bounds.dtype, device=bounds.device)
+    return torch.cat([-inf, bounds[..., 1:-1], inf], dim=-1)
+
+
 def segment_group_sum(m: torch.Tensor, values: torch.Tensor, bounds: torch.Tensor, clamp: bool) -> torch.Tensor:
     """Sum sorted segments into groups: (T, C, S) -> (T, C, G).
 
@@ -42,11 +52,7 @@ def segment_group_sum(m: torch.Tensor, values: torch.Tensor, bounds: torch.Tenso
     if bounds.dim() == 1:
         bounds = bounds.unsqueeze(0).expand(t, bounds.shape[0])
     ng = bounds.shape[1] - 1
-    if clamp:
-        inf = torch.full((t, 1), torch.inf, dtype=bounds.dtype, device=bounds.device)
-        eff = torch.cat([-inf, bounds[:, 1:-1], inf], dim=1)
-    else:
-        eff = bounds
+    eff = effective_bounds(bounds, clamp)
     # p[t, j] = #segments with value < boundary j (ties -> upper group)
     pj = torch.searchsorted(values.contiguous(), eff.contiguous(), right=False)  # (T, G+1)
     csum = torch.cat([m.new_zeros((t, c, 1)), torch.cumsum(m, dim=2)], dim=2)  # (T, C, S+1)

@@ -7,6 +7,11 @@ TPU mesh and pads them onto a three-step shape ladder to keep remote
 compiles scarce; eager torch has no compile per shape, so here a tile is a
 plain slice and only the last one is shorter. A multi-GPU row split is
 ROADMAP A12.
+
+Inputs of a dispatch set go to the device once (put_rows on the whole row
+pool, tiles are slices of the device tensor); each tile's result starts its
+copy back as soon as it is enqueued (fetch_rows) and the host waits once per
+dispatch set (land_rows).
 """
 
 from __future__ import annotations
@@ -23,3 +28,29 @@ def tile_for(n: int, cap: int) -> int:
 def put_rows(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host float array -> float64 tensor on `device`."""
     return torch.as_tensor(np.ascontiguousarray(arr, dtype=np.float64), device=device)
+
+
+def put_replicated(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host table that every tile of a dispatch reads (group bounds, a law's
+    shared mu knots) -> float64 tensor on `device`: copied once per dispatch
+    set, never per tile. (With one device this is put_rows; the multi-GPU
+    row split, ROADMAP A12, copies it to every device.)"""
+    return put_rows(arr, device)
+
+
+def fetch_rows(res: torch.Tensor) -> torch.Tensor:
+    """Start the copy of a tile's result to the host and return the host
+    tensor. From the card the copy is enqueued on the current stream, lands
+    in pinned memory and does not wait (land_rows waits once for all of
+    them); from the CPU it returns `res` itself."""
+    return res.to("cpu", non_blocking=True)
+
+
+def land_rows(pending: list, device: torch.device) -> None:
+    """Wait ONCE for every fetch_rows copy enqueued on `device`, then store
+    each into its host buffer. pending: [(buffer, start, length, host
+    tensor)], rows [start, start + length) of `buffer` receiving the tensor."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    for buf, start, length, host in pending:
+        buf[start : start + length] = host.numpy()

@@ -12,6 +12,7 @@ Key observables:
 from __future__ import annotations
 
 import json
+from collections import Counter
 from contextlib import nullcontext
 from dataclasses import dataclass, field
 
@@ -34,6 +35,9 @@ class RunMetrics:
     # family), merged into phase_seconds at run end. Drivers record through
     # RunMetrics.span so a None metrics costs nothing.
     timers: PhaseTimers = field(default_factory=PhaseTimers, repr=False)
+    # outer-panel chunk -> number of cm_moments_pointwise tiles dispatched
+    # with it (continuum_driver picks the chunk from a byte budget)
+    continuum_chunks: Counter = field(default_factory=Counter, repr=False)
 
     def span(self, name: str):
         return self.timers.span(name)

@@ -15,18 +15,26 @@ from ndpp_tpu_torch.ops.twobody_inner import twobody_group_moments, twobody_grou
 
 MODULES = [
     "ndpp_tpu_torch",
+    "ndpp_tpu_torch.banding",
+    "ndpp_tpu_torch.chi_driver",
     "ndpp_tpu_torch.cli",
     "ndpp_tpu_torch.config",
+    "ndpp_tpu_torch.continuum_driver",
     "ndpp_tpu_torch.driver",
     "ndpp_tpu_torch.groups",
     "ndpp_tpu_torch.host.ace.parse",
     "ndpp_tpu_torch.host.ace.synth",
     "ndpp_tpu_torch.host.ace.write",
     "ndpp_tpu_torch.host.library_index",
+    "ndpp_tpu_torch.host.angular_moments",
     "ndpp_tpu_torch.host.prep",
+    "ndpp_tpu_torch.host.prep_continuum",
     "ndpp_tpu_torch.interop",
     "ndpp_tpu_torch.io.library",
+    "ndpp_tpu_torch.ops.chi",
+    "ndpp_tpu_torch.ops.continuum",
     "ndpp_tpu_torch.ops.legendre",
+    "ndpp_tpu_torch.ops.panelsplit",
     "ndpp_tpu_torch.ops.segment",
     "ndpp_tpu_torch.ops.twobody",
     "ndpp_tpu_torch.ops.twobody_inner",
@@ -217,3 +225,49 @@ def test_kernel_matches_plain_version_on_the_card():
     assert twobody_group_moments.launches == len(CARD_CASES)
     # the driver's result copies rely on a non-blocking copy off the card landing in pinned memory
     assert out.to("cpu", non_blocking=True).is_pinned()
+
+
+@pytest.mark.cuda
+def test_continuum_and_chi_stay_on_the_card(monkeypatch):
+    """On device="cuda" every op result of the continuum and chi drivers is a
+    float64 tensor on the card until its one copy back, which lands in pinned
+    host memory; the values agree with the CPU run of the same rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run python3 chip_smoke.py on the card)")
+    import types
+
+    from ndpp_tpu_torch import chi_driver, continuum_driver, groups
+    from ndpp_tpu_torch.config import RunConfig
+    from ndpp_tpu_torch.host.ace import synth
+    from ndpp_tpu_torch.parallel import rows as rows_mod
+
+    seen = []
+    fetch = rows_mod.fetch_rows
+
+    def spy(res):
+        host = fetch(res)
+        seen.append((res.device.type, res.dtype, host.is_pinned() or res.device.type == "cpu"))
+        return host
+
+    monkeypatch.setattr(rows_mod, "fetch_rows", spy)
+    gs = groups.get("uniform-lethargy-47")
+    cfg = RunConfig(freegas_for=["none"])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        seen.clear()
+        device = torch.device(dev)
+        for key, mt in (("kalbach", 91), ("law61cm", 22), ("law4nd", 91), ("nbody", 16)):
+            nuc = synth.build(key)
+            out[dev, key] = continuum_driver.continuum_reaction_moments(
+                nuc, nuc.reactions[mt], nuc.energy[-6:], gs, 3, cfg, device)
+        for key in ("u235", "watt"):
+            nuc = synth.build(key)
+            res = types.SimpleNamespace(energy=nuc.energy[-6:])
+            chi_driver.chi_collapse(res, nuc, gs, cfg, device)
+            out[dev, key] = res.chi_total
+        assert len(seen) >= 6
+        assert all(s == (dev, torch.float64, True) for s in seen), seen
+    for (dev, key), got in out.items():
+        if dev == "cuda":
+            ref = out["cpu", key]
+            assert np.abs(got - ref).max() <= 1e-13 * np.abs(ref).max(), key
