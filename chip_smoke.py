@@ -38,7 +38,20 @@ never jax or the reference package, and proves in one process that:
   6. the thermal deck, same width, at 293.6 K and 600 K over h1, o16, fe56,
      u235 and h1_iso with the default free-gas settings (every nuclide,
      below 400 kT) and S(alpha,beta) tables on h1 (lwtr.20t) and o16
-     (grph.20t), held to the same checks and compared whole with its CPU run.
+     (grph.20t), held to the same checks and compared whole with its CPU run;
+  7. the CLI on the card's machine: ``python -m ndpp_tpu_torch info`` on the
+     two-body deck's ASCII library names every nuclide the deck wrote, and
+     ``python -m ndpp_tpu_torch groups`` lists the deck's group structure;
+  8. selfcheck: ``python -m ndpp_tpu_torch selfcheck`` in a process of its
+     own at the production shape (2048 rows, P5, 361 groups, nq 16) exits 0:
+     the two-body kernel against its plain version on the card (relative
+     error at most 1e-8, at least one launch), free-gas against the
+     panel-split kernel, continuum (with the small-a probe and the
+     tabular-angle leg) and chi against an exact host integral, each under
+     the reference's gates. Its kernel launches join the kernel line.
+
+Worker runs (``run --workers``) and ``merge`` are not driven here: their
+shards are HDF5 and the card's machine has no h5py; the CPU tests hold them.
 
 The line before the last is a JSON object describing each kernel of the
 path; the last line is {"ok": true, "device": {...}}. Any failed phase
@@ -454,6 +467,56 @@ def compare_with_cpu(tag: str, cuda_cfg, cpu_cfg) -> None:
         raise RuntimeError(f"CUDA and CPU libraries differ: {failing} missing={report['missing']}")
 
 
+def port_cli(*args: str, timeout: float = 600) -> tuple[str, float]:
+    """`python -m ndpp_tpu_torch *args` in a process of its own, from this
+    checkout; returns (stdout, wall seconds) and raises unless it exits 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ndpp_tpu_torch", *args], capture_output=True, text=True, timeout=timeout, cwd=ROOT
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"ndpp_tpu_torch {' '.join(args)} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    return proc.stdout, wall
+
+
+def cli_phase(library: Path, names: list[str], groups: str) -> None:
+    """info on a library the deck wrote, and groups, through the CLI."""
+    out, wall = port_cli("info", str(library))
+    if f"nuclides ({len(names)}):" not in out or not all(f"  {n} " in out for n in names):
+        raise RuntimeError(f"info does not list the {len(names)} nuclides the deck wrote:\n{out}")
+    phase("cli", f"info {library.name}: exit 0 in {wall:.2f} s, " + "; ".join(out.splitlines()[1:5]))
+    out, wall = port_cli("groups")
+    if not any(line.startswith(groups) and f" {KERNEL_SHAPE['groups']} groups" in line for line in out.splitlines()):
+        raise RuntimeError(f"groups does not list {groups}:\n{out}")
+    phase("cli", f"groups: exit 0 in {wall:.2f} s, {len(out.splitlines())} structures listed")
+
+
+def selfcheck_phase() -> int:
+    """The port's accuracy gate at the production shape, as a user runs it;
+    returns the two-body kernel's launches in its run."""
+    out, wall = port_cli("selfcheck")
+    report = json.loads(out.strip().splitlines()[-1])
+    phase(
+        "selfcheck",
+        f"{report['device_name']} shape {json.dumps(report['shape'])}: two-body route {report['twobody_route']} "
+        f"launches {report['twobody_kernel_launches']} on {report['twobody_subintervals']} subintervals, "
+        f"max_abs {report['twobody_max_abs']:.3e} max_rel {report['twobody_max_rel']:.3e} "
+        f"(gate 1e-8) in {report['twobody_seconds']:.3f} s",
+    )
+    for name in ("freegas", "continuum", "chi"):
+        r = report[name]
+        extra = f", small-a max_abs {r['small_aa_max_abs']:.3e}" if name == "continuum" else ""
+        phase("selfcheck", f"{name}: ok={r['ok']} max_abs {r['max_abs']:.3e} "
+              f"max_rel_significant {r['max_rel_significant']:.3e}{extra} in {r['seconds']:.3f} s, "
+              f"peak device memory {r['peak_device_bytes']} B")
+    phase("selfcheck", f"exit 0, ok={report['ok']}, process wall {wall:.2f} s")
+    if not (report["ok"] and report["twobody_route"] == "cuda" and report["twobody_kernel_launches"] >= 1
+            and report["twobody_max_rel"] <= 1e-8):
+        raise RuntimeError(f"selfcheck failed: {report['failed']}")
+    return report["twobody_kernel_launches"]
+
+
 def twobody_deck(work: Path) -> int:
     names = write_fixtures(work / "lib")
     cfg = deck(work / "lib", names, work / "cuda.txt")
@@ -462,6 +525,7 @@ def twobody_deck(work: Path) -> int:
     _, launches, _ = run_on_card("e2e", cfg, len(names))
     check_library("e2e", cfg.output.path, work / "lib", names)
     compare_with_cpu("e2e", cfg, deck(work / "lib", names, work / "cpu.txt"))
+    cli_phase(Path(cfg.output.path), names, cfg.groups)
     return launches
 
 
@@ -505,13 +569,14 @@ def main() -> int:
             "continuum": continuum_deck(Path(work)),
             "thermal": thermal_deck(Path(work)),
         }
+    by_deck["selfcheck"] = selfcheck_phase()
     phase("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "twobody_group_moments",
         "route": "cuda",
         "source": "ndpp_tpu_torch/csrc/twobody_inner.cu",
         "replaces": "ndpp_tpu/ops/twobody_pallas_dd.py:120",
-        "launches": sum(by_deck.values()),  # each deck counted from 0, read right after its run
+        "launches": sum(by_deck.values()),  # each deck (and selfcheck's process) counted from 0
         "launches_by_deck": by_deck,
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],

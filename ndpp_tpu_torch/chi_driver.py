@@ -50,7 +50,7 @@ def _law_fractions(prep, gs, cfg, device: torch.device, metrics=None) -> np.ndar
                 )
                 pending.append((out, start, length, rows_mod.fetch_rows(frac)))
         with RunMetrics.span_or_null(metrics, "wait.chi"):
-            rows_mod.land_rows(pending, device)
+            rows_mod.land_rows(pending, device, "chi")
         return out
     if prep.e_knots is None:
         raise AceFormatError(f"chi: unsupported spectrum kind {prep.kind!r}")
@@ -78,7 +78,7 @@ def _law_fractions(prep, gs, cfg, device: torch.device, metrics=None) -> np.ndar
                 frac = tabular_group_fractions(kn_d[sl], pd_d[sl], bounds if b_d is None else b_d[sl], clamp)
                 pending.append((buf, start, length, rows_mod.fetch_rows(frac)))
     with RunMetrics.span_or_null(metrics, "wait.chi"):
-        rows_mod.land_rows(pending, device)
+        rows_mod.land_rows(pending, device, "chi")
     for idx, g0s, buf in finals:
         out[idx] = banding.densify(buf[:, None, :], g0s, gs.ng)[:, 0, :]
     # ND > 0 delta lines: their l=0 contribution is the line probability

@@ -119,7 +119,7 @@ def _law_moments(
                 frac = analytic_group_fractions(e_d[sl], th_d[sl], b_d[sl], prep.extra["u"], bounds, law, clamp)
                 pending.append((out[:, 0, :], start, length, rows_mod.fetch_rows(frac)))
         with RunMetrics.span_or_null(metrics, "wait.continuum"):
-            rows_mod.land_rows(pending, device)
+            rows_mod.land_rows(pending, device, "continuum")
         return out  # isotropic lab: moments l >= 1 vanish
 
     if prep.kind == "lab-tabular":
@@ -149,7 +149,7 @@ def _law_moments(
                     )
                     pending.append((buf, start, length, rows_mod.fetch_rows(res)))
         with RunMetrics.span_or_null(metrics, "wait.continuum"):
-            rows_mod.land_rows(pending, device)
+            rows_mod.land_rows(pending, device, "continuum")
         for idx, g0s, buf in finals:
             out[idx] = banding.densify(buf, g0s, ng)
         _add_discrete_lines(out, prep, gs, cfg, device)
@@ -241,7 +241,7 @@ def _law_moments(
                     )
                     pending.append((buf, start, length, rows_mod.fetch_rows(res)))
         with RunMetrics.span_or_null(metrics, "wait.continuum"):
-            rows_mod.land_rows(pending, device)
+            rows_mod.land_rows(pending, device, "continuum")
         for idx, g0s, buf in finals:
             out[idx] = banding.densify(buf, g0s, ng)
         return out
@@ -280,7 +280,7 @@ def _add_discrete_lines(out: np.ndarray, prep: ContinuumPrepared, gs, cfg, devic
         sl = slice(start, start + length)
         res = discrete_lines_moments(e_d[sl], p_d[sl], am_d[sl], bounds, cfg.clamp_outside)
         pending.append((lines, start, length, rows_mod.fetch_rows(res)))
-    rows_mod.land_rows(pending, device)
+    rows_mod.land_rows(pending, device, "continuum")
     out += lines
 
 

@@ -166,7 +166,7 @@ def _tiled_twobody_multi(preps, bounds, order, nq, tile_cap, metrics, clamp, dev
                 )
                 pending.append((buf, start, length, rows_mod.fetch_rows(res)))
     with RunMetrics.span_or_null(metrics, "wait.twobody"):
-        rows_mod.land_rows(pending, device)  # one wait, for every tile's copy
+        rows_mod.land_rows(pending, device, "twobody")  # one wait, for every tile's copy
     for buf, g0_all, i, off in slices:
         n_i = preps[i].e.size
         g0_i = None if g0_all is None else g0_all[off : off + n_i]
@@ -326,6 +326,8 @@ def _process_with_oom_retry(nuc, gs, cfg, device, metrics, sab_tables=None):
     for attempt in range(3):
         try:
             return process_nuclide(nuc, gs, try_cfg, device, metrics, sab_tables)
+        except rows_mod.NonFiniteResult as e:
+            raise NdppError(f"{e} for {nuc.name}") from e
         except RuntimeError as e:
             # torch.cuda.OutOfMemoryError is a RuntimeError; other CUDA and
             # plain python RuntimeErrors quarantine rather than kill the sweep
@@ -360,8 +362,13 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
-def run(cfg: RunConfig, device: str | torch.device = "cuda") -> RunMetrics:
-    """Full library run: parse -> process -> write, with quarantine + resume."""
+def run(cfg: RunConfig, device: str | torch.device = "cuda", debug_nans: bool = False) -> RunMetrics:
+    """Full library run: parse -> process -> write, with quarantine + resume.
+
+    debug_nans: every family's results are checked for NaN/Inf where they
+    land on the host (parallel.rows.land_rows); a nuclide with one is
+    quarantined with the family and its name as the reason.
+    """
     log = log_mod.get()
     dev = resolve_device(device)
     timers = PhaseTimers()
@@ -482,6 +489,7 @@ def run(cfg: RunConfig, device: str | torch.device = "cuda") -> RunMetrics:
         profiler = torch.profiler.profile(activities=activities)
         profiler.start()
     try:
+        rows_mod.debug_nans = debug_nans
         for i, name in enumerate(todo):
             for j in range(i, min(i + prefetch_depth, len(todo))):
                 nm = todo[j]
@@ -521,6 +529,7 @@ def run(cfg: RunConfig, device: str | torch.device = "cuda") -> RunMetrics:
                 metrics.nuclides_quarantined += 1
                 log.error("quarantined %s: %s", name, reason)
     finally:
+        rows_mod.debug_nans = False
         if watchdog is not None:
             watchdog.stop()
         if profiler is not None:

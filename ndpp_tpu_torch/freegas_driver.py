@@ -183,7 +183,7 @@ def apply_freegas(
     # Pass 2: wait for the scattering-law tiles and combine per temperature
     for (k, kt, rows, sub_idx, e_sub, w, raw, pending), f0k in zip(plans, f0k_all):
         with RunMetrics.span_or_null(metrics, "wait.freegas"):
-            rows_mod.land_rows(pending, device)
+            rows_mod.land_rows(pending, device, "freegas")
         ffg = np.zeros((e_sub.size, order + 1, gs.ng))
         ffg[:, :, :w] = raw[:, :, 1:]
         if cfg.clamp_outside:

@@ -118,6 +118,47 @@ def user_groups_dir() -> Path:
     return Path(os.environ.get("NDPP_GROUPS_DIR", "~/.config/ndpp/groups")).expanduser()
 
 
+def import_table(src: str | Path, name: str | None = None, dest_dir: str | Path | None = None) -> GroupStructure:
+    """Validate + install a user-supplied boundary table (SURVEY.md section 8.4).
+
+    The published structures (casmo-47, xmas-172, shem-361) are data this
+    package does not carry and will not fabricate; once a user HAS the
+    published boundaries, importing them here makes the published name
+    resolvable in configs with zero code changes:
+
+      - the source file is parsed and validated (strictly ascending after
+        sort/dedup, positive, >= 2 boundaries -- GroupStructure.__post_init__);
+      - a canonical table is written to ``<dest_dir>/<name>.txt`` with a
+        provenance header: source path, source file sha256, import date,
+        boundary checksum, group count;
+      - :func:`get` resolves names from that directory, and library
+        writers echo the provenance block into output metadata.
+
+    Input format: one boundary per line in eV ('#' comments and blank
+    lines ignored, commas allowed, any order; duplicates collapse).
+    Returns the GroupStructure loaded back from the canonical file.
+    """
+    import datetime
+
+    src = Path(src)
+    gs = from_file(src, name)
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()
+    dest_root = Path(dest_dir) if dest_dir is not None else user_groups_dir()
+    dest_root.mkdir(parents=True, exist_ok=True)
+    dest = dest_root / f"{gs.name}.txt"
+    header = [
+        f"# name: {gs.name}",
+        f"# source: {src.resolve()}",
+        f"# source_sha256: {digest}",
+        f"# imported: {datetime.date.today().isoformat()}",
+        f"# boundaries_sha256_16: {gs.checksum()}",
+        f"# groups: {gs.ng}",
+        "# format: one boundary per line, eV; '#' comments ignored; sorted+deduped on load",
+    ]
+    dest.write_text("\n".join(header) + "\n" + "\n".join(f"{b:.17E}" for b in gs.bounds) + "\n")
+    return from_file(dest, gs.name)
+
+
 _REGISTRY_BUILDERS = {
     "uniform-lethargy-47": lambda: uniform_lethargy("uniform-lethargy-47", 47),
     "uniform-lethargy-172": lambda: uniform_lethargy("uniform-lethargy-172", 172),

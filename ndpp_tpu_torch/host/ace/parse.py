@@ -17,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ndpp_tpu_torch import native
 from ndpp_tpu_torch.host.ace.records import (
     MEV_TO_EV,
     AngleEnergySlice,
@@ -286,7 +287,7 @@ def _parse_ascii(text: str, name_hint: str | None = None) -> Nuclide:
     jxs_tokens = "".join(lines[izaw_end + 2 : izaw_end + 6])
     jxs = np.array([int(jxs_tokens[i : i + 9]) for i in range(0, 32 * 9, 9)], dtype=np.int64)
     xss_text = "\n".join(lines[izaw_end + 6 :])
-    xss = np.array(xss_text.split(), dtype=np.float64)
+    xss = native.tokenize_floats(xss_text)
     if xss.size < nxs[0]:
         raise AceFormatError(f"XSS truncated: have {xss.size}, NXS(1)={nxs[0]}")
     xss = xss[: nxs[0]]

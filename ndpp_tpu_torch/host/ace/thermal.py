@@ -57,6 +57,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ndpp_tpu_torch import native
 from ndpp_tpu_torch.host.ace.parse import _Cursor
 from ndpp_tpu_torch.host.ace.records import MEV_TO_EV
 from ndpp_tpu_torch.host.ace.write import _Xss
@@ -298,7 +299,7 @@ def _parse_thermal(text: str, name_hint: str | None) -> ThermalTable:
     nxs = np.array([int(nxs_tokens[i : i + 9]) for i in range(0, 16 * 9, 9)], dtype=np.int64)
     jxs_tokens = "".join(lines[izaw_end + 2 : izaw_end + 6])
     jxs = np.array([int(jxs_tokens[i : i + 9]) for i in range(0, 32 * 9, 9)], dtype=np.int64)
-    xss = np.array("\n".join(lines[izaw_end + 6 :]).split(), dtype=np.float64)
+    xss = native.tokenize_floats("\n".join(lines[izaw_end + 6 :]))
     if xss.size < nxs[0]:
         raise AceFormatError(f"thermal XSS truncated: have {xss.size}, NXS(1)={nxs[0]}")
     xss = xss[: nxs[0]]

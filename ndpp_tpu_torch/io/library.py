@@ -10,8 +10,9 @@ attribute are the checkpoint/resume mechanism (SURVEY.md section 5).
 The format is the reference package's (ndpp_tpu/io/library.py): the same
 schema and datasets, with only the generator/version strings naming the
 port. h5py is imported only inside the HDF5 paths, so ASCII libraries are
-written, read and compared without it. The shard merge (``ndpp merge``) is
-not ported yet (ROADMAP A12).
+written, read and compared without it. The shard merge (``merge``, the
+worker runs of parallel/nuclides) and the ASCII twin of a merged library are
+HDF5-level, so they need h5py.
 """
 
 from __future__ import annotations
@@ -244,6 +245,111 @@ def open_writers(cfg, gs: GroupStructure):
             AsciiLibraryWriter(apath, gs, cfg.legendre_order, cfg.temperatures, cfg.to_json(), cfg.resume)
         )
     return writers
+
+
+def merge_libraries(dst: str | Path, srcs: list[str | Path]) -> int:
+    """Merge shard HDF5 libraries into one (nuclide-axis process sharding).
+
+    Header/group-structure/temperatures come from the first source and are
+    VALIDATED identical (checksum, bounds, temperatures, order) across all
+    sources; nuclide groups are copied (later sources win on duplicates).
+    Returns the merged nuclide count.
+    """
+    import h5py
+
+    srcs = [Path(s) for s in srcs]
+    if not srcs:
+        raise ValueError("merge_libraries: no source libraries")
+    dst = Path(dst)
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    with h5py.File(dst, "w") as out:
+        n = 0
+        ref_meta = None
+        skipped: list[str] = []
+        for k, src in enumerate(srcs):
+            with h5py.File(src, "r") as f:
+                meta = (
+                    f["group_structure"].attrs["checksum"],
+                    tuple(f["group_structure/bounds"][()]),
+                    tuple(f["temperatures"][()]),
+                    int(f.attrs["legendre_order"]),
+                )
+                if k == 0:
+                    ref_meta = meta
+                    for key in ("group_structure", "temperatures", "config"):
+                        f.copy(key, out)
+                    for a in ("format_version", "ndpp_tpu_version", "created", "legendre_order"):
+                        out.attrs[a] = f.attrs[a]
+                    out.create_group("nuclides")
+                elif meta != ref_meta:
+                    raise ValueError(
+                        f"merge_libraries: {src} header (groups/temps/order) differs from {srcs[0]}"
+                    )
+                for name in f["nuclides"]:
+                    # a crashed worker may leave a partially written group
+                    # (complete=0, datasets possibly missing): merging it
+                    # would poison readers and resume bookkeeping -- skip it
+                    if not f[f"nuclides/{name}"].attrs.get("complete", 0):
+                        skipped.append(f"{src.name}:{name}")
+                        continue
+                    if name in out["nuclides"]:
+                        del out[f"nuclides/{name}"]
+                    f.copy(f"nuclides/{name}", out["nuclides"])
+                    n += 1
+    if skipped:
+        from ndpp_tpu_torch.utils import log as log_mod
+
+        log_mod.get().warning(
+            "merge_libraries: skipped %d incomplete nuclide group(s): %s", len(skipped), skipped
+        )
+    return n
+
+
+def write_ascii_from_hdf5(h5_path: str | Path, ascii_path: str | Path) -> int:
+    """Write the lossless ASCII twin of an HDF5 library; returns nuclide count.
+
+    Used after a worker-sharded run's HDF5 merge (parallel/nuclides): shard
+    workers always write HDF5 (the merge is HDF5-level), so an 'ascii'/'both'
+    output format is honored by mirroring the merged file. Only complete
+    nuclide groups are written (the ASCII end_nuclide marker means complete).
+    """
+    import h5py
+
+    with h5py.File(h5_path, "r") as f:
+        cfg_json = f["config"][()]
+        if isinstance(cfg_json, bytes):
+            cfg_json = cfg_json.decode()
+        gs = GroupStructure(
+            name=str(f["group_structure"].attrs["name"]), bounds=f["group_structure/bounds"][()]
+        )
+        w = AsciiLibraryWriter(
+            ascii_path, gs, int(f.attrs["legendre_order"]), list(f["temperatures"][()]), cfg_json
+        )
+        n = 0
+        for name in f["nuclides"]:
+            g = f[f"nuclides/{name}"]
+            if not g.attrs.get("complete", 0):
+                continue
+            res = NuclideResult(
+                name=name,
+                zaid=int(g.attrs["zaid"]),
+                awr=float(g.attrs["awr"]),
+                kT=float(g.attrs["kT_eV"]),
+                energy=g["energy"][()],
+                temperatures=g["temperatures"][()],
+                scatter=g["scatter"][()],
+                sigma_scatter=g["sigma_scatter"][()],
+                **{k: g[k][()] for k in _OPTIONAL_SETS if k in g},
+                extra={k: g[f"extra/{k}"][()] for k in g["extra"]} if "extra" in g else {},
+            )
+            w.write_nuclide(res)
+            n += 1
+        metrics = None
+        if "metrics" in f:
+            m = f["metrics"][()]
+            metrics = json.loads(m.decode() if isinstance(m, bytes) else m)
+        w.finalize(metrics)
+    return n
 
 
 # --------------------------------------------------------------------------

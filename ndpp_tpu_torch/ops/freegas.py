@@ -1,10 +1,13 @@
 """Free-gas (target-in-motion) thermal scattering moments with up-scatter.
 
-Counterpart of the production path of ndpp_tpu/ops/freegas.py:
-freegas_moments_sab with its density _sab_dens and the outgoing-axis
-machinery _outgoing_panelsplit. The reference's (v_r, V_cm) quadrature
-kernels are cross-checks that its tests and selfcheck use; they are not
-ported.
+Counterpart of ndpp_tpu/ops/freegas.py: the production kernel
+freegas_moments_sab with its density _sab_dens, the structurally independent
+panel-split kernel freegas_moments_panelsplit with its (v_r, V_cm)
+quadrature density _pointwise_dens (the kernel selfcheck holds the production
+one against), and the outgoing-axis machinery _outgoing_panelsplit that both
+share. The reference's other cross-checks (freegas_moments,
+freegas_moments_pointwise, freegas_sigma_eff_ratio) serve only its tests and
+oracle and are not ported.
 
 Model: Maxwellian target of mass ratio A at temperature T (kT in eV),
 constant free-atom cross section, isotropic CM scattering. With the
@@ -23,8 +26,10 @@ so a row's cost does not grow with the group count.
 
 Plain float64 torch functions on the device of their arguments. The
 reference's lax.scan over chunks of 8 y-panels is a Python loop here whose
-chunk the caller picks from a byte budget (chunk_for); chunks are
-independent, so the result does not depend on the chunk.
+chunk comes from a byte budget (chunk_for, panelsplit_chunk_for); chunks are
+independent, so the result does not depend on the chunk. The panel-split
+kernel's lax.scan over v_r panels is a Python loop too, and only the L+1
+(T, NY) accumulators live across its iterations.
 """
 
 from __future__ import annotations
@@ -36,6 +41,13 @@ from ndpp_tpu_torch.ops.continuum import CHUNK_BUDGET_BYTES
 from ndpp_tpu_torch.ops.legendre import gl_nodes_weights
 from ndpp_tpu_torch.ops.panelsplit import lagrange_cumulants
 
+# per-row outer v_r panel offsets of _pointwise_dens in units of 1/beta,
+# graded around v_r = v
+_VR_OFFSETS = np.array([-8.0, -4.0, -2.0, -1.0, -0.5, 0.0, 0.5, 1.0, 2.0, 4.0, 8.0])
+# its middle V_cm panel offsets in units of the Gaussian width, graded around
+# the weight peak V_cm* (the e^{-beta^2 V^2} band can be much narrower than
+# the kinematic [|v - u|, v + u] range at high x = beta v)
+_VCM_OFFSETS = np.array([-8.0, -4.0, -2.0, -1.0, -0.5, 0.0, 0.5, 1.0, 2.0, 4.0, 8.0])
 # outgoing y-panel ladder around the elastic point and its alpha image, in
 # units of 2 gamma / beta
 _Y_LADDER = np.array([-32.0, -16.0, -8.0, -4.0, -2.0, -1.0, -0.5, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0])
@@ -48,13 +60,23 @@ U_PANELS = _SAB_ULAD.size + _SAB_CLAD.size + 1  # u-panels per outgoing point
 # The reference's shipped rule: GL nodes per u-panel and per y-panel, and the
 # uniform fill of the outgoing axis
 NQ_U, NQ_G, NFILL_Y = 24, 20, 8
-# outgoing y-panels per row: the uniform fill with both window ends, two
-# graded ladders and the two anchors they are graded around
-Y_PANELS = (NFILL_Y + 2) + 2 * _Y_LADDER.size + 2 - 1
+
+
+def y_panels(nfill_y: int) -> int:
+    """Outgoing y-panels per row of _outgoing_panelsplit: the uniform fill
+    with both window ends, two graded ladders and their two anchors."""
+    return (nfill_y + 2) + 2 * _Y_LADDER.size + 2 - 1
+
+
+Y_PANELS = y_panels(NFILL_Y)
 # float64 tensors of (rows, chunk * NQ_G, U_PANELS, NQ_U) alive at once at the
 # widest point of _sab_dens (u, w, root, t, jac and their temporaries; in the
 # Legendre loop base, mu, three P_l and their temporaries)
 _LIVE_NODE_TENSORS = 10
+# float64 tensors of (rows, chunk * nq_g, nq_r, C) alive at once at the widest
+# point of a v_r panel of _pointwise_dens (cc, w_c, dens, c_a, c_b, two P_l of
+# each, their product and the temporaries of each line)
+_PW_LIVE_NODE_TENSORS = 14
 
 
 def chunk_for(rows: int, budget_bytes: int = CHUNK_BUDGET_BYTES) -> int:
@@ -62,6 +84,25 @@ def chunk_for(rows: int, budget_bytes: int = CHUNK_BUDGET_BYTES) -> int:
     NQ_U) float64 tensors stay inside `budget_bytes`: between 1 and all."""
     per_panel = max(rows, 1) * NQ_G * U_PANELS * NQ_U * 8 * _LIVE_NODE_TENSORS
     return max(1, min(Y_PANELS, budget_bytes // per_panel))
+
+
+def _c_fill(nfill_c: int, ngeo_c: int) -> np.ndarray:
+    """Fill fractions of a V_cm range: a uniform fill and a geometric grading
+    at its low end (the reference's np.unique, computed once on the host)."""
+    return np.unique(np.concatenate([np.linspace(0.0, 1.0, nfill_c + 2)[1:-1], 4.0 ** -np.arange(ngeo_c, 0, -1.0)]))
+
+
+def panelsplit_chunk_for(
+    rows: int, nq_g: int, nq_r: int, nq_c: int, nfill_c: int, ngeo_c: int, npan: int,
+    budget_bytes: int = CHUNK_BUDGET_BYTES,
+) -> int:
+    """y-panels per chunk of freegas_moments_panelsplit so the chunk's live
+    (T, chunk * nq_g, nq_r, C) float64 tensors stay inside `budget_bytes`:
+    between 1 and all `npan`. C is the V_cm nodes per v_r node: nq_c on each
+    of the panels between lo, two graded ladders, the fill and hi."""
+    n_c = (2 * _VCM_OFFSETS.size + _c_fill(nfill_c, ngeo_c).size + 1) * nq_c
+    per_panel = max(rows, 1) * nq_g * nq_r * n_c * 8 * _PW_LIVE_NODE_TENSORS
+    return max(1, min(npan, budget_bytes // per_panel))
 
 
 def _clip(x, lo, hi):
@@ -82,7 +123,62 @@ def freegas_moments_sab(e, awr, kt, bounds, order: int, chunk: int = Y_PANELS):
     so each P0 row sums to 1 (a row with no mass in it is left unscaled).
     chunk: y-panels evaluated at a time (chunk_for).
     """
-    return _outgoing_panelsplit(e, torch.sqrt(e), _per_row(awr, e), _per_row(kt, e), bounds, order, chunk)
+    v, awr, kt = torch.sqrt(e), _per_row(awr, e), _per_row(kt, e)
+    return _outgoing_panelsplit(
+        e, v, awr, kt, bounds, order, NQ_G, NFILL_Y, chunk, lambda y: _sab_dens(y, v, awr, kt, order)
+    )
+
+
+def freegas_moments_panelsplit(
+    e,
+    awr,
+    kt,
+    bounds,
+    order: int,
+    nq_g: int = 10,
+    nq_r: int = 8,
+    nq_c: int = 8,
+    chunk: int = 8,
+    nfill_r: int = 7,
+    nfill_c: int = 7,
+    ngeo_c: int = 8,
+    nfill_y: int = 8,
+):
+    """Free-gas moments by the (v_r, V_cm) quadrature of the target's motion,
+    at the outgoing panels of _outgoing_panelsplit: (T, L+1, G).
+
+    The kernel selfcheck holds freegas_moments_sab against: the same
+    outgoing-axis machinery, an independent density (_pointwise_dens, no
+    scattering-law code). Its cost per row does not grow with G.
+
+    bounds: FINITE covering window (G+1,), ascending. chunk: at most this many
+    y-panels at a time; fewer where the 2 GiB budget of live node tensors
+    says so (panelsplit_chunk_for). The result does not depend on it.
+    """
+    dtype, dev = e.dtype, e.device
+    v = torch.sqrt(e)
+    awr = _per_row(awr, e)
+    kt = _per_row(kt, e)
+    gamma = awr / (awr + 1.0)
+    beta = torch.sqrt(awr / kt)
+    inv_beta = 1.0 / beta
+    a_ratio = (awr + 1.0) / awr
+    xr, wr, xc, wc = (
+        torch.as_tensor(a, dtype=dtype, device=dev) for a in (*gl_nodes_weights(nq_r), *gl_nodes_weights(nq_c))
+    )
+    lo_r_dom = torch.clamp_min(v - 8.0 * inv_beta, 0.0)
+    hi_r_dom = v + 8.0 * inv_beta
+    ladder = torch.as_tensor(_VR_OFFSETS, dtype=dtype, device=dev)
+    offs_c = torch.as_tensor(_VCM_OFFSETS, dtype=dtype, device=dev)
+    chunk = min(chunk, panelsplit_chunk_for(e.shape[0], nq_g, nq_r, nq_c, nfill_c, ngeo_c, y_panels(nfill_y)))
+
+    def dens_fn(y):
+        return _pointwise_dens(
+            y, v, awr, gamma, beta, inv_beta, a_ratio, lo_r_dom, hi_r_dom,
+            ladder, offs_c, xr, wr, xc, wc, order, nfill_r, nfill_c, ngeo_c,
+        )
+
+    return _outgoing_panelsplit(e, v, awr, kt, bounds, order, nq_g, nfill_y, chunk, dens_fn)
 
 
 def _sab_dens(y, v, awr, kt, order: int):
@@ -149,10 +245,12 @@ def _sab_dens(y, v, awr, kt, order: int):
     return dsig
 
 
-def _outgoing_panelsplit(e, v, awr, kt, bounds, order: int, chunk: int):
-    """The outgoing-axis machinery: y-panels at the integrand's structure,
-    the density (_sab_dens) at every panel GL node, `chunk` panels at a time,
-    group splits from the GL-node Lagrange interpolant, row normalization."""
+def _outgoing_panelsplit(e, v, awr, kt, bounds, order: int, nq_g: int, nfill_y: int, chunk: int, dens_fn):
+    """The outgoing-axis machinery of both kernels: y-panels at the
+    integrand's structure, the density at every panel GL node, `chunk` panels
+    at a time, group splits from the GL-node Lagrange interpolant, row
+    normalization. dens_fn maps y (T, NY) to a list of L+1 (T, NY) density
+    values."""
     dtype, dev = e.dtype, e.device
     tt = e.shape[0]
     gamma = awr / (awr + 1.0)
@@ -165,7 +263,7 @@ def _outgoing_panelsplit(e, v, awr, kt, bounds, order: int, chunk: int):
     delta = 2.0 * gamma * inv_beta
     lad = torch.as_tensor(_Y_LADDER, dtype=dtype, device=dev)
     y_alpha = v * torch.abs(awr - 1.0) / (awr + 1.0)
-    fill_y = torch.as_tensor(np.linspace(0.0, 1.0, NFILL_Y + 2), dtype=dtype, device=dev)
+    fill_y = torch.as_tensor(np.linspace(0.0, 1.0, nfill_y + 2), dtype=dtype, device=dev)
     fills = sb[0] + (sb[-1] - sb[0]) * fill_y  # includes both window ends
     extra = torch.cat(
         [
@@ -178,23 +276,147 @@ def _outgoing_panelsplit(e, v, awr, kt, bounds, order: int, chunk: int):
     extra = torch.clamp(extra, sb[0], sb[-1])
     y_edges = torch.sort(torch.cat([fills[None, :].expand(tt, fills.shape[0]), extra], dim=1), dim=1).values
     npan = y_edges.shape[1] - 1
-    xg, wg = (torch.as_tensor(a, dtype=dtype, device=dev) for a in gl_nodes_weights(NQ_G))
+    xg, wg = (torch.as_tensor(a, dtype=dtype, device=dev) for a in gl_nodes_weights(nq_g))
     pmid = 0.5 * (y_edges[:, 1:] + y_edges[:, :-1])  # (T, NP)
     phalf = 0.5 * (y_edges[:, 1:] - y_edges[:, :-1])
 
     # --- g(y) = dF_l/dE' * 2y at every panel GL node, `chunk` panels at a time
-    gvals = e.new_empty((tt, npan, NQ_G, order + 1))
+    gvals = e.new_empty((tt, npan, nq_g, order + 1))
     for c0 in range(0, npan, chunk):
         pm = pmid[:, c0 : c0 + chunk]
         ph = phalf[:, c0 : c0 + chunk]
         n = pm.shape[1]
-        y = (pm[:, :, None] + ph[:, :, None] * xg[None, None, :]).reshape(tt, n * NQ_G)
-        vals = torch.stack(_sab_dens(y, v, awr, kt, order), dim=-1) * (2.0 * y)[..., None]  # g(y) = dens * dE'/dy
-        gvals[:, c0 : c0 + n] = vals.reshape(tt, n, NQ_G, order + 1)
+        y = (pm[:, :, None] + ph[:, :, None] * xg[None, None, :]).reshape(tt, n * nq_g)
+        vals = torch.stack(dens_fn(y), dim=-1) * (2.0 * y)[..., None]  # g(y) = dens * dE'/dy
+        gvals[:, c0 : c0 + n] = vals.reshape(tt, n, nq_g, order + 1)
 
     # --- cumulative integrals C_l(sb_g) at every group boundary
-    cumul = lagrange_cumulants(y_edges, pmid, phalf, gvals, wg, sb, npan, NQ_G)
+    cumul = lagrange_cumulants(y_edges, pmid, phalf, gvals, wg, sb, npan, nq_g)
     out = cumul[:, 1:, :] - cumul[:, :-1, :]  # (T, G, L+1)
     n_full = cumul[:, -1, 0]
     n_full = torch.where(n_full > 0, n_full, torch.ones_like(n_full))
     return out.transpose(1, 2) / n_full[:, None, None]
+
+
+def _pointwise_dens(
+    y, v, awr, gamma, beta, inv_beta, a_ratio, lo_r_dom, hi_r_dom,
+    ladder, offs_c, xr, wr, xc, wc, order: int,
+    nfill_r: int, nfill_c: int, ngeo_c: int,
+):
+    """dF_l/dE'(y) at outgoing points by the (v_r, V_cm) quadrature of the
+    target's motion: a list of L+1 (T, NY) tensors; y is (T, NY).
+
+    Relative speed v_r and CM speed V_cm (units y = sqrt(E)): weight
+    v_r^2 V_cm exp(-beta^2 V^2) with V^2 = -v^2/A + v_r^2/(A+1) + V_cm^2 (A+1)/A,
+    E' uniform over [(V_cm - u)^2, (V_cm + u)^2] (u = gamma v_r) with density
+    1/(4 V_cm u), and P_l(mu_lab) averaged over azimuth as P_l(c_a) P_l(c_b).
+    The v_r panels per (row, y) are graded around v and cut at the kinks of
+    the reachable ranges; the V_cm panels per (row, y, v_r node) are graded
+    around the weight's peak, filled uniformly and graded geometrically at
+    their low end. The reference's lax.scan over v_r panels is a Python loop
+    that keeps only the L+1 accumulators across iterations.
+    """
+    dtype, dev = y.dtype, y.device
+    tt, ny = y.shape
+    nq_r = xr.shape[0]
+
+    # per-(row, y) outer v_r edges: Maxwellian ladder + 3 closed-form kinks
+    # (|v - y| covers down- and up-scatter)
+    base_e = (v[:, None] + inv_beta[:, None] * ladder[None, :])[:, None, :].expand(tt, ny, ladder.shape[0])
+    g2 = (2.0 * gamma)[:, None]
+    kinks = torch.stack([y / gamma[:, None], torch.abs(v[:, None] - y) / g2, (v[:, None] + y) / g2], dim=-1)
+
+    # V_cm-ladder layout transitions: vstar(vr) crossing the V_cm-domain ends
+    # |y - u|, y + u, |v - u|, v + u, the roots of
+    #   (A/(A+1)) vr^2 -+ 2 z gamma vr + z^2 - v^2/(A+1) = 0, z in {y, v}
+    a2 = (awr / (awr + 1.0))[:, None]
+    vsc = (v * v / (awr + 1.0))[:, None]
+    root_parts = []
+    for z in (y, v[:, None].expand(tt, ny)):
+        for sgn in (-1.0, 1.0):
+            bq = sgn * 2.0 * z * gamma[:, None]
+            disc = bq * bq - 4.0 * a2 * (z * z - vsc)
+            sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+            root_parts.append((-bq + sq) / (2.0 * a2))
+            root_parts.append((-bq - sq) / (2.0 * a2))
+    vkinks = torch.stack(root_parts, dim=-1)  # (T, NY, 8)
+
+    # uniform fill: P_l(c_a) P_l(c_b) oscillates across the whole domain
+    fill_fr = torch.as_tensor(np.linspace(0.0, 1.0, nfill_r + 2)[1:-1], dtype=dtype, device=dev)
+    lo_d, hi_d = lo_r_dom[:, None, None], hi_r_dom[:, None, None]
+    fill_r = (lo_d + (hi_r_dom - lo_r_dom)[:, None, None] * fill_fr).expand(tt, ny, fill_fr.shape[0])
+    edges_r = torch.sort(_clip(torch.cat([base_e, kinks, vkinks, fill_r], dim=-1), lo_d, hi_d), dim=-1).values
+    del base_e, kinks, vkinks, fill_r, root_parts
+    nrp = edges_r.shape[-1] - 1
+
+    fill_cf = torch.as_tensor(_c_fill(nfill_c, ngeo_c), dtype=dtype, device=dev)
+    vv3 = v[:, None, None]
+    v2_ = (v * v)[:, None, None, None]
+    y2_ = (y * y)[..., None, None]
+    y4 = y[..., None, None]
+    awr4 = awr[:, None, None, None]
+    ap1_4 = (awr + 1.0)[:, None, None, None]
+    ar4 = a_ratio[:, None, None, None]
+    nb2_4 = -(beta * beta)[:, None, None, None]
+    two_v4 = 2.0 * v[:, None, None, None]
+    vstar_c0 = (v * v / (awr + 1.0))[:, None, None]
+    vstar_c1 = (awr / ((awr + 1.0) * (awr + 1.0)))[:, None, None]
+    w_quad = (1.0 / (beta * torch.sqrt(a_ratio)))[:, None, None, None]
+    w_lin_d = (beta * beta * 2.0 * a_ratio)[:, None, None]
+
+    acc = [torch.zeros_like(y) for _ in range(order + 1)]
+    for rp in range(nrp):
+        e_lo = edges_r[..., rp]
+        e_hi = edges_r[..., rp + 1]
+        rmid = 0.5 * (e_hi + e_lo)  # (T, NY)
+        rhalf = 0.5 * (e_hi - e_lo)
+        vr = rmid[..., None] + rhalf[..., None] * xr  # (T, NY, QR)
+        w_r = rhalf[..., None] * wr
+        u = gamma[:, None, None] * vr
+        lo_c = torch.maximum(torch.abs(y[..., None] - u), torch.abs(vv3 - u))
+        hi_c = torch.minimum(y[..., None] + u, vv3 + u)
+        ok_rc = hi_c > lo_c
+        # graded V_cm nodes inside [lo_c, hi_c]
+        vstar = torch.sqrt(torch.clamp_min(vstar_c0 - vstar_c1 * (vr * vr), 0.0))
+        anchor = _clip(vstar, lo_c, hi_c)
+        w_lin = 1.0 / (w_lin_d * torch.clamp_min(anchor, 1e-30))
+        lo4, hi4 = lo_c[..., None], hi_c[..., None]
+        g_q = _clip(anchor[..., None] + w_quad * offs_c, lo4, hi4)
+        g_l = _clip(anchor[..., None] + w_lin[..., None] * offs_c, lo4, hi4)
+        g_f = lo4 + (hi_c - lo_c)[..., None] * fill_cf
+        edges_c = torch.sort(torch.cat([lo4, g_q, g_l, g_f, hi4], dim=-1), dim=-1).values  # (T, NY, QR, EC)
+        del g_q, g_l, g_f, vstar, anchor, w_lin
+        cmid = 0.5 * (edges_c[..., 1:] + edges_c[..., :-1])
+        chalf = 0.5 * (edges_c[..., 1:] - edges_c[..., :-1])
+        del edges_c
+        cc = (cmid[..., None] + chalf[..., None] * xc).reshape(tt, ny, nq_r, -1)  # (T, NY, QR, C)
+        w_c = (chalf[..., None] * wc).reshape(tt, ny, nq_r, -1)
+        del cmid, chalf
+
+        u4 = u[..., None]
+        cc2 = cc * cc
+        vsq = -v2_ / awr4 + (vr * vr)[..., None] / ap1_4 + cc2 * ar4
+        # the exponent is clamped at 0: vsq >= 0 on every valid cell, and the
+        # masked ones must not overflow (inf * 0 = NaN)
+        wgt = (vr * vr)[..., None] * cc * torch.exp(torch.clamp_max(nb2_4 * vsq, 0.0)) * w_c * w_r[..., None] * ok_rc[..., None]
+        del vsq, w_c
+        # guard the products: factors can underflow to 0 jointly on masked cells
+        dens = wgt / torch.clamp_min(4.0 * cc * u4, 1e-30)  # x E'-density 1/(4 C u)
+        del wgt
+        uu = u4 * u4
+        c_a = torch.clamp((v2_ + cc2 - uu) / torch.clamp_min(two_v4 * cc, 1e-30), -1.0, 1.0)
+        c_b = torch.clamp((y2_ + cc2 - uu) / torch.clamp_min(2.0 * y4 * cc, 1e-30), -1.0, 1.0)
+        del cc, cc2, uu
+        acc[0] = acc[0] + torch.sum(dens, dim=(2, 3))
+        if order >= 1:
+            pa_prev = torch.ones_like(c_a)
+            pb_prev = torch.ones_like(c_b)
+            pa_cur, pb_cur = c_a, c_b
+            acc[1] = acc[1] + torch.sum(dens * pa_cur * pb_cur, dim=(2, 3))
+            for l in range(1, order):
+                pa_next = ((2 * l + 1) * c_a * pa_cur - l * pa_prev) / (l + 1)
+                pb_next = ((2 * l + 1) * c_b * pb_cur - l * pb_prev) / (l + 1)
+                pa_prev, pa_cur = pa_cur, pa_next
+                pb_prev, pb_cur = pb_cur, pb_next
+                acc[l + 1] = acc[l + 1] + torch.sum(dens * pa_cur * pb_cur, dim=(2, 3))
+    return acc

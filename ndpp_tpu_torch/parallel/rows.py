@@ -19,6 +19,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ndpp_tpu_torch.utils.errors import NdppError
+
+# `run --debug-nans`: land_rows checks every result it lands for non-finite
+# values. driver.run sets it for the length of a run; off, land_rows does no
+# extra work and no extra wait.
+debug_nans = False
+
+
+class NonFiniteResult(NdppError):
+    """A family's device result holds NaN or Inf (found under debug_nans)."""
+
 
 def tile_for(n: int, cap: int, e_tile: int = 512) -> int:
     """Rows per dispatch: the cap, or all n rows when fewer.
@@ -51,11 +62,15 @@ def fetch_rows(res: torch.Tensor) -> torch.Tensor:
     return res.to("cpu", non_blocking=True)
 
 
-def land_rows(pending: list, device: torch.device) -> None:
+def land_rows(pending: list, device: torch.device, family: str) -> None:
     """Wait ONCE for every fetch_rows copy enqueued on `device`, then store
     each into its host buffer. pending: [(buffer, start, length, host
-    tensor)], rows [start, start + length) of `buffer` receiving the tensor."""
+    tensor)], rows [start, start + length) of `buffer` receiving the tensor.
+    Under debug_nans a landed tensor with a NaN or Inf raises
+    NonFiniteResult naming `family`."""
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
     for buf, start, length, host in pending:
+        if debug_nans and not bool(torch.isfinite(host).all()):
+            raise NonFiniteResult(f"non-finite {family} result (rows {start}..{start + length - 1} of a dispatch)")
         buf[start : start + length] = host.numpy()

@@ -159,7 +159,7 @@ def apply_sab(
                 if res is not None:
                     pending.append((np.empty(tuple(res.shape)), 0, res.shape[0], rows_mod.fetch_rows(res)))
         with RunMetrics.span_or_null(metrics, "wait.sab"):
-            rows_mod.land_rows(pending, device)
+            rows_mod.land_rows(pending, device, "sab")
         f_inel = pending[0][0]
         if prep.kind == "continuous":
             f_inel = interp_rows_loglin(e_rows, prep.e_in, f_inel)  # (NR, L+1, G)

@@ -34,6 +34,7 @@ MODULES = [
     "ndpp_tpu_torch.host.prep_thermal",
     "ndpp_tpu_torch.host.unionize",
     "ndpp_tpu_torch.interop",
+    "ndpp_tpu_torch.native",
     "ndpp_tpu_torch.io.library",
     "ndpp_tpu_torch.ops.chi",
     "ndpp_tpu_torch.ops.continuum",
@@ -44,7 +45,9 @@ MODULES = [
     "ndpp_tpu_torch.ops.thermal",
     "ndpp_tpu_torch.ops.twobody",
     "ndpp_tpu_torch.ops.twobody_inner",
+    "ndpp_tpu_torch.parallel.nuclides",
     "ndpp_tpu_torch.parallel.rows",
+    "ndpp_tpu_torch.selfcheck",
     "ndpp_tpu_torch.thermal_driver",
     "ndpp_tpu_torch.utils.watchdog",
 ]
@@ -327,3 +330,19 @@ def test_thermal_drivers_stay_on_the_card(monkeypatch):
     for key in ("h1", "o16", "fe56"):
         ref = out["cpu", key]
         assert np.abs(out["cuda", key] - ref).max() <= 1e-13 * np.abs(ref).max(), key
+
+
+@pytest.mark.cuda
+def test_selfcheck_at_production_shape_on_the_card():
+    """ndpp_tpu_torch.selfcheck at its defaults (2048 rows, P5, 361 groups,
+    nq 16): the two-body kernel against its plain version on the card, and
+    every family under the reference's gates."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc (run python3 chip_smoke.py on the card)")
+    from ndpp_tpu_torch import selfcheck
+
+    report = selfcheck.run(device="cuda")
+    print(report)
+    assert report["twobody_route"] == "cuda" and report["twobody_kernel_launches"] >= 1
+    assert report["twobody_max_rel"] <= 1e-8
+    assert report["ok"], report["failed"]
