@@ -48,7 +48,22 @@ never jax or the reference package, and proves in one process that:
      error at most 1e-8, at least one launch), free-gas against the
      panel-split kernel, continuum (with the small-a probe and the
      tabular-angle leg) and chi against an exact host integral, each under
-     the reference's gates. Its kernel launches join the kernel line.
+     the reference's gates. Its kernel launches join the kernel line;
+  9. shards: a mixed deck (h1 with lwtr.20t, o16, fe56, kalbach and u235 at
+     293.6 K, free-gas on: every family) through driver.run on one shard
+     and on two (on two cards where the machine has them, else both on
+     cuda:0, each shard on its own stream); each run launches the kernel,
+     the kernel launches on both shards, and the two libraries agree at
+     rtol 1e-13, atol 1e-16 (the reference's bound for its 8-device run
+     against 1); walls and launches per shard are printed;
+ 10. mesh: parallel.mesh.sharded_twobody_moments on a 1 x 2 mesh at the
+     bench shape (four fe56 reactions of 512 rows: 2048 rows, P5, 361
+     groups, nq 16) against one-device twobody_moments at the same bound,
+     one kernel launch per cell;
+ 11. scale: scripts/torch_scale_demo.py --nuclides 5 as a subprocess (its
+     cold and warm passes, P5, 361 groups, 293.6 and 600 K): exit 0, both
+     passes' SCALE lines, nothing quarantined; moments/s printed beside
+     the card's name and power limit. Its kernel launches join the line.
 
 Worker runs (``run --workers``) and ``merge`` are not driven here: their
 shards are HDF5 and the card's machine has no h5py; the CPU tests hold them.
@@ -88,6 +103,11 @@ RTOL, ATOL = 1e-12, 1e-14  # kernel vs plain, elementwise
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP64_FLOPS_PER_S = 34e12  # H100 SXM FP64 outside the tensor cores
 LIB_RTOL, LIB_ATOL = 1e-8, 1e-14  # CUDA library vs CPU library
+# the shards phase: one nuclide of every family at one temperature
+SHARD_FIXTURES = ("h1", "o16", "fe56", "kalbach", "u235")
+SHARD_RUN = {"freegas_for": [], "sab": {"1001.80c": ["lwtr.20t"]}, "temperatures": [293.6]}
+SHARD_RTOL, SHARD_ATOL = 1e-13, 1e-16  # two shards vs one (the reference's bound for its 8 devices vs 1)
+SCALE_NUCLIDES = 5  # torch_scale_demo.py's first five fixtures: evap, fe56, h1 (with lwtr), h1_iso, kalbach
 P0_TOL = 1e-10  # P0 row sums against the mean yield, chi row sums against 1
 
 
@@ -136,6 +156,19 @@ def build():
     return seconds
 
 
+def fe56_preps():
+    """The port's two-body preparation of every fe56 two-body reaction on its
+    moment grid, and the knot count they pad to."""
+    from ndpp_tpu_torch.host import unionize
+    from ndpp_tpu_torch.host.ace import synth
+    from ndpp_tpu_torch.host.prep import prepare_twobody
+
+    nuc = synth.fe56_like()
+    e_grid = unionize.moment_grid(nuc.energy)
+    preps = [prepare_twobody(nuc, r, e_grid) for r in nuc.scattering_reactions(include_fission=False)]
+    return preps, unionize.bucket_pow2(max(p.knots.shape[1] for p in preps))
+
+
 def bench_inputs(device, band: int, clamp: bool, n_rows: int = KERNEL_SHAPE["rows"]):
     """The port's prologue on fe56 rows (every two-body reaction), tiled to
     `n_rows` rows, against the 361-group table (band 0) or per-row windows of
@@ -146,14 +179,9 @@ def bench_inputs(device, band: int, clamp: bool, n_rows: int = KERNEL_SHAPE["row
 
     from ndpp_tpu_torch import groups
     from ndpp_tpu_torch.host import unionize
-    from ndpp_tpu_torch.host.ace import synth
-    from ndpp_tpu_torch.host.prep import prepare_twobody
     from ndpp_tpu_torch.ops.twobody import twobody_panels
 
-    nuc = synth.fe56_like()
-    e_grid = unionize.moment_grid(nuc.energy)
-    preps = [prepare_twobody(nuc, r, e_grid) for r in nuc.scattering_reactions(include_fission=False)]
-    k = unionize.bucket_pow2(max(p.knots.shape[1] for p in preps))
+    preps, k = fe56_preps()
     take = np.arange(n_rows)
 
     def rows(f):
@@ -359,10 +387,11 @@ def deck(lib: Path, names: list[str], out: Path, **run):
     return cfg
 
 
-def run_on_card(tag: str, cfg, n_nuclides: int):
-    """driver.run on the card with the kernel's count set to 0 just before and
-    read just after; raises on a quarantine or on a run that never launched
-    the kernel. Returns (metrics, launches, wall seconds)."""
+def run_on_card(tag: str, cfg, n_nuclides: int, device="cuda"):
+    """driver.run on the card (`device`: what driver.run takes) with the
+    kernel's count set to 0 just before and read just after; raises on a
+    quarantine or on a run that never launched the kernel. Returns (metrics,
+    launches, wall seconds)."""
     import torch
 
     from ndpp_tpu_torch import driver
@@ -371,7 +400,7 @@ def run_on_card(tag: str, cfg, n_nuclides: int):
     twobody_group_moments.launches = 0  # launches of the compare phase and of other decks do not count
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    metrics = driver.run(cfg, device="cuda")
+    metrics = driver.run(cfg, device=device)
     wall = time.perf_counter() - t0
     launches = twobody_group_moments.launches
     phase(
@@ -556,6 +585,133 @@ def thermal_deck(work: Path) -> int:
     return launches
 
 
+def shard_devices() -> tuple[list[str], str]:
+    """Two shards: on two cards where the machine has them, else both on
+    cuda:0, each with its own stream."""
+    import torch
+
+    if torch.cuda.device_count() >= 2:
+        return ["cuda:0", "cuda:1"], "two cards"
+    return ["cuda:0", "cuda:0"], "one card, two streams"
+
+
+def shards_phase(work: Path) -> int:
+    """The mixed deck (every family) through driver.run on one shard and on
+    two; the libraries agree at SHARD_RTOL / SHARD_ATOL and the kernel runs
+    on both shards. Returns the launches of both runs."""
+    from ndpp_tpu_torch.io.library import compare
+    from ndpp_tpu_torch.ops.twobody_inner import twobody_group_moments
+    from ndpp_tpu_torch.parallel.rows import Placement
+
+    lib = work / "shardlib"
+    names = write_fixtures(lib, SHARD_FIXTURES, (), ("lwtr",))
+    devices, where = shard_devices()
+    place = Placement(devices)
+    phase("shards", f"{len(names)} nuclides ({', '.join(SHARD_FIXTURES)}) at {SHARD_RUN['temperatures']} K, free-gas "
+          f"on, sab {json.dumps(SHARD_RUN['sab'])}, P{KERNEL_SHAPE['order']}, {KERNEL_SHAPE['groups']} groups; "
+          f"two shards on {where}: {devices}")
+    paths, total = {}, 0
+    for tag, device in (("one shard", "cuda:0"), ("two shards", place)):
+        cfg = deck(lib, names, work / f"shards_{len(paths) + 1}.txt", **SHARD_RUN)
+        twobody_group_moments.launches_by_stream.clear()
+        _, launches, wall = run_on_card("shards", cfg, len(names), device)
+        by_stream = dict(twobody_group_moments.launches_by_stream)
+        total += launches
+        paths[tag] = cfg.output.path
+        phase("shards", f"{tag}: wall {wall:.3f} s, kernel launches {launches}")
+    per_shard = [by_stream.get(st.cuda_stream, 0) for st in place.streams]
+    phase("shards", f"two shards: kernel launches per shard {per_shard} (streams of {devices})")
+    if min(per_shard) <= 0:
+        raise RuntimeError(f"a shard never launched the two-body kernel: {per_shard}")
+    check_library("shards", paths["two shards"], lib, names)
+    report = compare(paths["two shards"], paths["one shard"], rtol=SHARD_RTOL, atol=SHARD_ATOL)
+    worst = max((v["max_abs"] for v in report["datasets"].values()), default=0.0)
+    phase("shards", f"two shards vs one: match={report['match']} (rtol {SHARD_RTOL:g}, atol {SHARD_ATOL:g}) over "
+          f"{len(report['datasets'])} datasets, max_abs={worst:.3e}")
+    if not report["match"]:
+        failing = {k: v for k, v in report["datasets"].items() if not v.get("ok", False)}
+        raise RuntimeError(f"the two-shard library differs from the one-shard library: {failing}")
+    return total
+
+
+def mesh_phase() -> int:
+    """sharded_twobody_moments on a 1 x 2 mesh at the bench shape (every fe56
+    two-body reaction a block of 512 rows: 2048 rows, P5, 361 groups, nq 16)
+    against one-device twobody_moments at SHARD_RTOL / SHARD_ATOL. Returns
+    the kernel's launches of the sharded call."""
+    import numpy as np
+    import torch
+
+    from ndpp_tpu_torch import groups
+    from ndpp_tpu_torch.host import unionize
+    from ndpp_tpu_torch.ops.twobody import twobody_moments
+    from ndpp_tpu_torch.ops.twobody_inner import twobody_group_moments
+    from ndpp_tpu_torch.parallel.mesh import auto_mesh, place_batch, sharded_twobody_moments
+
+    preps, k = fe56_preps()
+    n, t = 4, KERNEL_SHAPE["rows"] // 4
+    take = np.arange(t)
+    e = np.stack([preps[i % len(preps)].e[take % preps[i % len(preps)].e.size] for i in range(n)])
+    knots, pdf = (
+        np.stack([unionize.pad_to(getattr(preps[i % len(preps)], f), k, axis=1)[take % preps[i % len(preps)].e.size]
+                  for i in range(n)])
+        for f in ("knots", "pdf")
+    )
+    c1, c2, awr = (np.array([getattr(preps[i % len(preps)], f) for i in range(n)]) for f in ("c1", "c2", "awr"))
+    bounds = groups.get(f"uniform-lethargy-{KERNEL_SHAPE['groups']}").bounds
+    order, nq = KERNEL_SHAPE["order"], KERNEL_SHAPE["nq"]
+    devices, where = shard_devices()
+    mesh = auto_mesh(devices, n_nuclide=1)
+    placed = place_batch(mesh, {"e": e, "knots": knots, "pdf": pdf, "c1": c1, "c2": c2, "awr": awr})
+    twobody_group_moments.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sharded_twobody_moments(mesh, placed["e"], placed["knots"], placed["pdf"], bounds, placed["c1"],
+                                  placed["c2"], placed["awr"], order, nq)
+    wall = time.perf_counter() - t0
+    launches = twobody_group_moments.launches
+    dev = torch.device(devices[0])
+    rows = [torch.as_tensor(np.ascontiguousarray(x), device=dev) for x in
+            (e.reshape(-1), knots.reshape(n * t, k), pdf.reshape(n * t, k), bounds,
+             np.repeat(c1, t), np.repeat(c2, t), np.repeat(awr, t))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = twobody_moments(*rows, order, nq).cpu().reshape(got.shape)
+    one_wall = time.perf_counter() - t0
+    err = (got - one).abs()
+    bad = int((err > SHARD_ATOL + SHARD_RTOL * one.abs()).sum())
+    phase("mesh", f"sharded_twobody_moments on a {mesh.shape} mesh over {where} {devices}: ({n}, {t}) rows -> "
+          f"{tuple(got.shape)}, kernel launches {launches}, wall {wall:.4f} s (one device {one_wall:.4f} s), "
+          f"max_abs={float(err.max()):.3e}, outside(|s-o| <= {SHARD_ATOL:g} + {SHARD_RTOL:g}|o|)={bad}")
+    if bad or not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"the mesh's two-body moments differ from one device's on {bad} elements")
+    if launches < mesh.place.nd:
+        raise RuntimeError(f"the mesh launched the two-body kernel {launches} times for {mesh.place.nd} cells")
+    return launches
+
+
+def scale_phase(work: Path, smi: str) -> int:
+    """scripts/torch_scale_demo.py at SCALE_NUCLIDES nuclides as a user runs
+    it: exit 0, both passes' SCALE lines, nothing quarantined. Returns the
+    kernel's launches over both passes."""
+    cmd = [sys.executable, str(ROOT / "scripts" / "torch_scale_demo.py"), "--nuclides", str(SCALE_NUCLIDES),
+           "--workdir", str(work / "scale")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"torch_scale_demo.py exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    rows = [json.loads(line[len("SCALE "):]) for line in proc.stdout.splitlines() if line.startswith("SCALE ")]
+    for r in rows:
+        phase("scale", f"{r['pass']}: {r['nuclides_done']} nuclides, {r['moments']} moments in {r['wall_s']:.3f} s = "
+              f"{r['moments_per_sec']:.4e} moments/s, quarantined {r['quarantined']}, kernel launches "
+              f"{r['kernel_launches']}, write {r['phase_seconds'].get('write', 0.0):.3f} s on {smi}")
+    if [r["pass"] for r in rows] != ["cold", "warm"] or any(r["quarantined"] or r["kernel_launches"] <= 0 for r in rows):
+        raise RuntimeError(f"torch_scale_demo.py: passes {rows}")
+    phase("scale", f"exit 0 in {wall:.2f} s (the library build and both passes)")
+    return sum(r["kernel_launches"] for r in rows)
+
+
 def main() -> int:
     import torch
 
@@ -569,6 +725,9 @@ def main() -> int:
             "continuum": continuum_deck(Path(work)),
             "thermal": thermal_deck(Path(work)),
         }
+        by_deck["shards"] = shards_phase(Path(work))
+        by_deck["mesh"] = mesh_phase()
+        by_deck["scale"] = scale_phase(Path(work), smi)
     by_deck["selfcheck"] = selfcheck_phase()
     phase("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ndpp_tpu_torch import banding
-from ndpp_tpu_torch.continuum_driver import _add_discrete_lines, _band_subsets, _tiles
+from ndpp_tpu_torch.continuum_driver import _add_discrete_lines, _band_subsets
 from ndpp_tpu_torch.host import unionize
 from ndpp_tpu_torch.host.prep_continuum import ContinuumPrepared, prepare_continuum
 from ndpp_tpu_torch.ops.chi import analytic_group_fractions, tabular_group_fractions
@@ -30,27 +30,26 @@ from ndpp_tpu_torch.utils.metrics import RunMetrics
 FISSION_MTS = (18, 19, 20, 21, 38)
 
 
-def _law_fractions(prep, gs, cfg, device: torch.device, metrics=None) -> np.ndarray:
-    """(NE, G) group fractions of one law's energy pdf (tiled dispatch)."""
+def _law_fractions(prep, gs, cfg, place: rows_mod.Placement, metrics=None) -> np.ndarray:
+    """(NE, G) group fractions of one law's energy pdf (tiled dispatch, each
+    tile split over the shards of `place`)."""
     ne = prep.e.size
-    bounds = rows_mod.put_replicated(gs.bounds, device)
+    bounds = place.put_replicated(gs.bounds)
     clamp = cfg.clamp_outside
     out = np.zeros((ne, gs.ng))
     if prep.kind == "lab-analytic":
-        _, spans = _tiles(ne, 4096, cfg.device.e_tile)
+        plan = place.plan(ne, 4096, cfg.device.e_tile)
         pending = []
         with RunMetrics.span_or_null(metrics, "dispatch.chi"):
-            e_d = rows_mod.put_rows(prep.e, device)
-            th_d = rows_mod.put_rows(prep.extra["theta"], device)
-            b_d = rows_mod.put_rows(prep.extra["b"], device)
-            for start, length in spans:
-                sl = slice(start, start + length)
-                frac = analytic_group_fractions(
-                    e_d[sl], th_d[sl], b_d[sl], prep.extra["u"], bounds, prep.extra["law"], clamp
-                )
-                pending.append((out, start, length, rows_mod.fetch_rows(frac)))
+            e_d, th_d, b_d = (plan.put(a) for a in (prep.e, prep.extra["theta"], prep.extra["b"]))
+            for k, sl, start, length in plan.pieces:
+                with place.shard(k):
+                    frac = analytic_group_fractions(
+                        e_d[k][sl], th_d[k][sl], b_d[k][sl], prep.extra["u"], bounds[k], prep.extra["law"], clamp
+                    )
+                    pending.append((out, start, length, place.fetch(frac)))
         with RunMetrics.span_or_null(metrics, "wait.chi"):
-            rows_mod.land_rows(pending, device, "chi")
+            place.land(pending, "chi")
         return out
     if prep.e_knots is None:
         raise AceFormatError(f"chi: unsupported spectrum kind {prep.kind!r}")
@@ -67,27 +66,28 @@ def _law_fractions(prep, gs, cfg, device: torch.device, metrics=None) -> np.ndar
     finals = []
     with RunMetrics.span_or_null(metrics, "dispatch.chi"):
         for idx, gw, g0s, b_rows in subsets:
-            kn_d = rows_mod.put_rows(kn[idx], device)
-            pd_d = rows_mod.put_rows(pd[idx], device)
-            b_d = None if b_rows is None else rows_mod.put_rows(b_rows, device)
+            plan = place.plan(idx.size, 1024, cfg.device.e_tile)
+            kn_d, pd_d = plan.put(kn[idx]), plan.put(pd[idx])
+            b_d = None if b_rows is None else plan.put(b_rows)
             buf = np.empty((idx.size, gw))
             finals.append((idx, g0s, buf))
-            _, spans = _tiles(idx.size, 1024, cfg.device.e_tile)
-            for start, length in spans:
-                sl = slice(start, start + length)
-                frac = tabular_group_fractions(kn_d[sl], pd_d[sl], bounds if b_d is None else b_d[sl], clamp)
-                pending.append((buf, start, length, rows_mod.fetch_rows(frac)))
+            for k, sl, start, length in plan.pieces:
+                with place.shard(k):
+                    frac = tabular_group_fractions(
+                        kn_d[k][sl], pd_d[k][sl], bounds[k] if b_d is None else b_d[k][sl], clamp
+                    )
+                    pending.append((buf, start, length, place.fetch(frac)))
     with RunMetrics.span_or_null(metrics, "wait.chi"):
-        rows_mod.land_rows(pending, device, "chi")
+        place.land(pending, "chi")
     for idx, g0s, buf in finals:
         out[idx] = banding.densify(buf[:, None, :], g0s, gs.ng)[:, 0, :]
     # ND > 0 delta lines: their l=0 contribution is the line probability
     # in the containing group (ops.continuum.discrete_lines_moments l=0)
-    _add_discrete_lines(out[:, None, :], prep, gs, cfg, device)
+    _add_discrete_lines(out[:, None, :], prep, gs, cfg, place)
     return out
 
 
-def _batched_law_fractions(preps, gs, cfg, device: torch.device, metrics=None) -> list[np.ndarray]:
+def _batched_law_fractions(preps, gs, cfg, place: rows_mod.Placement, metrics=None) -> list[np.ndarray]:
     """One (NE_i, G) per law, with tabular laws POOLED by knot bucket into
     one tiled dispatch set: a fissionable nuclide's prompt laws plus its ~6
     delayed precursor spectra share their tiles and their one wait."""
@@ -95,12 +95,12 @@ def _batched_law_fractions(preps, gs, cfg, device: torch.device, metrics=None) -
     pools: dict[int, list[int]] = {}
     for i, prep in enumerate(preps):
         if prep.kind == "lab-analytic" or prep.e_knots is None:
-            out[i] = _law_fractions(prep, gs, cfg, device, metrics)
+            out[i] = _law_fractions(prep, gs, cfg, place, metrics)
         else:
             pools.setdefault(unionize.bucket_pow2(prep.e_knots.shape[1]), []).append(i)
     for k16, idxs in sorted(pools.items()):
         if len(idxs) == 1:
-            out[idxs[0]] = _law_fractions(preps[idxs[0]], gs, cfg, device, metrics)
+            out[idxs[0]] = _law_fractions(preps[idxs[0]], gs, cfg, place, metrics)
             continue
         e_all = np.concatenate([preps[i].e for i in idxs])
         pooled = ContinuumPrepared(
@@ -110,21 +110,23 @@ def _batched_law_fractions(preps, gs, cfg, device: torch.device, metrics=None) -
             e_knots=np.concatenate([unionize.pad_to(preps[i].e_knots, k16, axis=1) for i in idxs]),
             pdf=np.concatenate([unionize.pad_to(preps[i].pdf, k16, axis=1) for i in idxs]),
         )
-        frac_all = _law_fractions(pooled, gs, cfg, device, metrics)
+        frac_all = _law_fractions(pooled, gs, cfg, place, metrics)
         off = 0
         for i in idxs:
             n = preps[i].e.size
             f = frac_all[off : off + n]
             if preps[i].extra.get("disc") is not None:
                 f = f.copy()  # the pooled buffer slice is shared
-                _add_discrete_lines(f[:, None, :], preps[i], gs, cfg, device)
+                _add_discrete_lines(f[:, None, :], preps[i], gs, cfg, place)
             out[i] = f
             off += n
     return out
 
 
-def chi_collapse(res, nuc, gs, cfg, device: torch.device, metrics=None) -> None:
-    """Fill res.chi_* / res.nu_* in place."""
+def chi_collapse(res, nuc, gs, cfg, place: rows_mod.Placement | torch.device, metrics=None) -> None:
+    """Fill res.chi_* / res.nu_* in place; `place` is the run's Placement,
+    or one device."""
+    place = rows_mod.as_placement(place)
     log = log_mod.get()
     fission = None
     for mt in FISSION_MTS:
@@ -156,7 +158,7 @@ def chi_collapse(res, nuc, gs, cfg, device: torch.device, metrics=None) -> None:
             delayed_items.append((pk * prep.applicability, prep))
 
     fracs = _batched_law_fractions(
-        [p for _, p in prompt_items + delayed_items], gs, cfg, device, metrics
+        [p for _, p in prompt_items + delayed_items], gs, cfg, place, metrics
     )
     prompt = np.zeros((e_grid.size, ng))
     for (w, _), f in zip(prompt_items, fracs[: len(prompt_items)]):

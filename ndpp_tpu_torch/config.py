@@ -27,9 +27,11 @@ Example deck (TOML):
     mesh = "auto"                              # or [n_nuclide_shards, n_e_shards]
 
 The schema and its validation are the reference package's
-(ndpp_tpu/config.py), so one deck drives both packages. Fields that only the
-reference's TPU layers read (device.mesh, device.max_devices) are accepted
-and ignored by this single-device port.
+(ndpp_tpu/config.py), so one deck drives both packages. device.max_devices
+is the number of cards `driver.run(cfg, device="cuda")` spreads every
+family's rows over (0 = all visible; parallel/rows.py). device.mesh is
+accepted and, as in the reference, read by no run (parallel/mesh.py takes
+its grid from its caller).
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ class DeviceConfig:
     e_tile: int = 512
     quad_points: int = 16  # Gauss-Legendre points per subinterval
     mesh: Any = "auto"  # "auto" | [n_nuclide, n_e]
-    max_devices: int = 0  # chips used for row-sharded dispatch (0 = all visible)
+    max_devices: int = 0  # cards of a "cuda" run's row-sharded dispatch (0 = all visible)
     profile: bool = False
     # Free-gas thermal rows per temperature evaluated on-device. 0 (default)
     # evaluates EVERY thermal union row exactly — the only setting that

@@ -5,10 +5,11 @@ reaction onto the matching device op (ops.continuum / ops.chi), weights by
 the law applicability p(E), and sums.
 
 A dispatch set is one law's (or one pool's) rows, cut into banded and dense
-subsets (banding.partition) and each subset into row tiles. A subset's
-operands go to the device once and tiles are slices of them; each tile's
-(T, L+1, G|B) result starts its copy to pinned host memory as soon as it is
-enqueued, and the host waits once per dispatch set.
+subsets (banding.partition) and each subset into row tiles, each tile split
+over the run's shards (parallel.rows.RowPlan). A subset's operands go to
+each shard once and pieces are slices of them; each piece's (T, L+1, G|B)
+result starts its copy to pinned host memory as soon as it is enqueued, and
+the host waits once per dispatch set.
 """
 
 from __future__ import annotations
@@ -79,20 +80,15 @@ def quantize_ksel(bound: int, k16: int) -> int:
     return 0
 
 
-def _tiles(ne: int, cap: int, e_tile: int = 512):
-    """Dispatch tile size + the tile spans. `cap` is the op family's row
-    budget at the default device.e_tile = 512 and scales with it, so the
-    driver's device-OOM retry (which halves e_tile) shrinks every family's
-    tiles, not just the two-body path's."""
-    tile = rows_mod.tile_for(ne, cap, e_tile)
-    return tile, unionize.tile_indices(ne, tile)
-
-
 def _law_moments(
-    prep: ContinuumPrepared, gs, order, cfg, awr: float, device: torch.device, metrics=None,
+    prep: ContinuumPrepared, gs, order, cfg, awr: float, place: rows_mod.Placement, metrics=None,
     ksel_override: int | None = None,
 ) -> np.ndarray:
-    """(NE, L+1, G) for one law (unweighted).
+    """(NE, L+1, G) for one law (unweighted), its rows split over `place`.
+
+    Each family's cap (4096, 1024, _CONTINUUM_TILE) is rows per shard at
+    the default device.e_tile = 512 and scales with it, so the driver's
+    device-OOM retry (which halves e_tile) shrinks every family's tiles.
 
     ksel_override: the windowed-knot selection bound, already quantized —
     passed by the pooled path (batched_continuum_moments), whose
@@ -101,25 +97,25 @@ def _law_moments(
     """
     ne = prep.e.size
     ng = gs.ng
-    bounds = rows_mod.put_replicated(gs.bounds, device)
+    bounds = place.put_replicated(gs.bounds)
     clamp = cfg.clamp_outside
     e_tile = cfg.device.e_tile
     out = np.zeros((ne, order + 1, ng))
 
     if prep.kind == "lab-analytic":
         law = prep.extra["law"]
-        _, spans = _tiles(ne, 4096, e_tile)
+        plan = place.plan(ne, 4096, e_tile)
         pending = []
         with RunMetrics.span_or_null(metrics, "dispatch.continuum"):
-            e_d = rows_mod.put_rows(prep.e, device)
-            th_d = rows_mod.put_rows(prep.extra["theta"], device)
-            b_d = rows_mod.put_rows(prep.extra["b"], device)
-            for start, length in spans:
-                sl = slice(start, start + length)
-                frac = analytic_group_fractions(e_d[sl], th_d[sl], b_d[sl], prep.extra["u"], bounds, law, clamp)
-                pending.append((out[:, 0, :], start, length, rows_mod.fetch_rows(frac)))
+            e_d, th_d, b_d = (plan.put(a) for a in (prep.e, prep.extra["theta"], prep.extra["b"]))
+            for k, sl, start, length in plan.pieces:
+                with place.shard(k):
+                    frac = analytic_group_fractions(
+                        e_d[k][sl], th_d[k][sl], b_d[k][sl], prep.extra["u"], bounds[k], law, clamp
+                    )
+                    pending.append((out[:, 0, :], start, length, place.fetch(frac)))
         with RunMetrics.span_or_null(metrics, "wait.continuum"):
-            rows_mod.land_rows(pending, device, "continuum")
+            place.land(pending, "continuum")
         return out  # isotropic lab: moments l >= 1 vanish
 
     if prep.kind == "lab-tabular":
@@ -137,22 +133,23 @@ def _law_moments(
         finals = []
         with RunMetrics.span_or_null(metrics, "dispatch.continuum"):
             for idx, gw, g0s, b_rows in subsets:
-                kn_d, pd_d, mm_d = (rows_mod.put_rows(a[idx], device) for a in (kn, pd, mm))
-                b_d = None if b_rows is None else rows_mod.put_rows(b_rows, device)
+                plan = place.plan(idx.size, 1024, e_tile)
+                kn_d, pd_d, mm_d = (plan.put(a[idx]) for a in (kn, pd, mm))
+                b_d = None if b_rows is None else plan.put(b_rows)
                 buf = np.empty((idx.size, order + 1, gw))
                 finals.append((idx, g0s, buf))
-                _, spans = _tiles(idx.size, 1024, e_tile)
-                for start, length in spans:
-                    sl = slice(start, start + length)
-                    res = lab_tabular_moments(
-                        kn_d[sl], pd_d[sl], mm_d[sl], bounds if b_d is None else b_d[sl], order, 8, clamp
-                    )
-                    pending.append((buf, start, length, rows_mod.fetch_rows(res)))
+                for k, sl, start, length in plan.pieces:
+                    with place.shard(k):
+                        res = lab_tabular_moments(
+                            kn_d[k][sl], pd_d[k][sl], mm_d[k][sl], bounds[k] if b_d is None else b_d[k][sl],
+                            order, 8, clamp,
+                        )
+                        pending.append((buf, start, length, place.fetch(res)))
         with RunMetrics.span_or_null(metrics, "wait.continuum"):
-            rows_mod.land_rows(pending, device, "continuum")
+            place.land(pending, "continuum")
         for idx, g0s, buf in finals:
             out[idx] = banding.densify(buf, g0s, ng)
-        _add_discrete_lines(out, prep, gs, cfg, device)
+        _add_discrete_lines(out, prep, gs, cfg, place)
         return out
 
     if prep.kind in ("cm-kalbach", "cm-tabular", "cm-nbody"):
@@ -175,7 +172,7 @@ def _law_moments(
                 host["rr"] = unionize.pad_to(prep.r_rows, k16, axis=1)
                 host["aa"] = unionize.pad_to(prep.a_rows, k16, axis=1)
             else:
-                muk = rows_mod.put_replicated(prep.mu_knots, device)
+                muk = place.put_replicated(prep.mu_knots)
                 kmu = prep.mu_knots.size
                 host["mup"] = unionize.pad_to(prep.mu_pdf, k16, axis=1)
             if ksel_override is not None:
@@ -219,29 +216,30 @@ def _law_moments(
         finals = []
         with RunMetrics.span_or_null(metrics, "dispatch.continuum"):
             for idx, gw, g0s, b_rows in subsets:
-                e_d = rows_mod.put_rows(prep.e[idx], device)
-                dev = {k: None if a is None else rows_mod.put_rows(a[idx], device) for k, a in host.items()}
-                b_d = None if b_rows is None else rows_mod.put_rows(b_rows, device)
+                plan = place.plan(idx.size, _CONTINUUM_TILE, e_tile)
+                e_d = plan.put(prep.e[idx])
+                dev = {name: None if a is None else plan.put(a[idx]) for name, a in host.items()}
+                b_d = None if b_rows is None else plan.put(b_rows)
                 buf = np.empty((idx.size, order + 1, gw))
                 finals.append((idx, g0s, buf))
-                _, spans = _tiles(idx.size, _CONTINUUM_TILE, e_tile)
-                for start, length in spans:
-                    sl = slice(start, start + length)
-                    cut = {k: None if a is None else a[sl] for k, a in dev.items()}
-                    npan = cont_ops.outer_panel_count(ke, gw, angular, kmu, "lagrange", angular == "tabular")
+                npan = cont_ops.outer_panel_count(ke, gw, angular, kmu, "lagrange", angular == "tabular")
+                for k, sl, start, length in plan.pieces:
+                    cut = {name: None if a is None else a[k][sl] for name, a in dev.items()}
                     chunk = cont_ops.chunk_for(length, nq_w, nq_y, sy, npan, budget)
                     if metrics is not None:
                         metrics.continuum_chunks[chunk] += 1
-                    res = cm_moments_pointwise(
-                        e_d[sl], cut["kn"], cut["pd"], cut["rr"], cut["aa"], muk, cut["mup"], cut["emax"],
-                        float(prep.nbody_expo or 0.0),
-                        bounds if b_d is None else b_d[sl],
-                        awr, order, nq_w, nq_y, angular, energy, clamp, chunk, ksel,
-                        "lagrange", angular == "tabular",
-                    )
-                    pending.append((buf, start, length, rows_mod.fetch_rows(res)))
+                    with place.shard(k):
+                        res = cm_moments_pointwise(
+                            e_d[k][sl], cut["kn"], cut["pd"], cut["rr"], cut["aa"],
+                            None if muk is None else muk[k], cut["mup"], cut["emax"],
+                            float(prep.nbody_expo or 0.0),
+                            bounds[k] if b_d is None else b_d[k][sl],
+                            awr, order, nq_w, nq_y, angular, energy, clamp, chunk, ksel,
+                            "lagrange", angular == "tabular",
+                        )
+                        pending.append((buf, start, length, place.fetch(res)))
         with RunMetrics.span_or_null(metrics, "wait.continuum"):
-            rows_mod.land_rows(pending, device, "continuum")
+            place.land(pending, "continuum")
         for idx, g0s, buf in finals:
             out[idx] = banding.densify(buf, g0s, ng)
         return out
@@ -266,21 +264,21 @@ def _band_subsets(part, ne: int, ng: int, gs):
     return subsets
 
 
-def _add_discrete_lines(out: np.ndarray, prep: ContinuumPrepared, gs, cfg, device: torch.device) -> None:
+def _add_discrete_lines(out: np.ndarray, prep: ContinuumPrepared, gs, cfg, place: rows_mod.Placement) -> None:
     """Add the ND>0 delta-line contribution (host/prep_continuum.discrete_line_rows)."""
     disc = prep.extra.get("disc")
     if disc is None:
         return
-    e_d, p_d, am_d = (rows_mod.put_rows(a, device) for a in disc)
-    bounds = rows_mod.put_replicated(gs.bounds, device)
-    _, spans = _tiles(e_d.shape[0], 4096, cfg.device.e_tile)
+    plan = place.plan(disc[0].shape[0], 4096, cfg.device.e_tile)
+    e_d, p_d, am_d = (plan.put(a) for a in disc)
+    bounds = place.put_replicated(gs.bounds)
     lines = np.empty_like(out)
     pending = []
-    for start, length in spans:
-        sl = slice(start, start + length)
-        res = discrete_lines_moments(e_d[sl], p_d[sl], am_d[sl], bounds, cfg.clamp_outside)
-        pending.append((lines, start, length, rows_mod.fetch_rows(res)))
-    rows_mod.land_rows(pending, device, "continuum")
+    for k, sl, start, length in plan.pieces:
+        with place.shard(k):
+            res = discrete_lines_moments(e_d[k][sl], p_d[k][sl], am_d[k][sl], bounds[k], cfg.clamp_outside)
+            pending.append((lines, start, length, place.fetch(res)))
+    place.land(pending, "continuum")
     out += lines
 
 
@@ -319,16 +317,18 @@ def _pooled_prep(kind: str, k16: int, preps: list[ContinuumPrepared]) -> Continu
 
 
 def batched_continuum_moments(
-    nuc, rxn_rows, gs, order, cfg, device: torch.device, metrics=None
+    nuc, rxn_rows, gs, order, cfg, place: rows_mod.Placement | torch.device, metrics=None
 ) -> list[np.ndarray]:
     """Per-reaction continuum moments with CROSS-REACTION dispatch pooling.
 
-    rxn_rows: list of (rxn, e_rows) for one nuclide. Returns one
+    rxn_rows: list of (rxn, e_rows) for one nuclide; place: the run's
+    Placement, or one device. Returns one
     applicability-weighted (NE_i, L+1, G) per reaction. All cm-kalbach
     (and separately lab-tabular) laws sharing a knot bucket ride ONE tiled
     dispatch set instead of one per reaction: fewer, larger tiles, and one
     wait for the pool's results.
     """
+    place = rows_mod.as_placement(place)
     totals = [np.zeros((e_rows.size, order + 1, gs.ng)) for _, e_rows in rxn_rows]
     entries: list[tuple[int, ContinuumPrepared]] = []
     for ri, (rxn, e_rows) in enumerate(rxn_rows):
@@ -345,7 +345,7 @@ def batched_continuum_moments(
     for ri, prep in entries:
         key = _pool_class(prep)
         if key is None:
-            mom = _law_moments(prep, gs, order, cfg, nuc.awr, device, metrics)
+            mom = _law_moments(prep, gs, order, cfg, nuc.awr, place, metrics)
             totals[ri] += prep.applicability[:, None, None] * mom
         else:
             pools.setdefault(key, []).append((ri, prep))
@@ -353,7 +353,7 @@ def batched_continuum_moments(
     for (kind, k16), members in sorted(pools.items()):
         if len(members) == 1:
             ri, prep = members[0]
-            mom = _law_moments(prep, gs, order, cfg, nuc.awr, device, metrics)
+            mom = _law_moments(prep, gs, order, cfg, nuc.awr, place, metrics)
             totals[ri] += prep.applicability[:, None, None] * mom
             continue
         ksel = None
@@ -366,18 +366,18 @@ def batched_continuum_moments(
                 )
                 ksel = quantize_ksel(need, k16)
         pooled = _pooled_prep(kind, k16, [p for _, p in members])
-        mom_all = _law_moments(pooled, gs, order, cfg, nuc.awr, device, metrics, ksel_override=ksel)
+        mom_all = _law_moments(pooled, gs, order, cfg, nuc.awr, place, metrics, ksel_override=ksel)
         off = 0
         for ri, prep in members:
             mom = mom_all[off : off + prep.e.size]
             if kind == "lab-tabular" and prep.extra.get("disc") is not None:
                 mom = mom.copy()  # the pooled buffer slice is shared
-                _add_discrete_lines(mom, prep, gs, cfg, device)
+                _add_discrete_lines(mom, prep, gs, cfg, place)
             totals[ri] += prep.applicability[:, None, None] * mom
             off += prep.e.size
     return totals
 
 
-def continuum_reaction_moments(nuc, rxn, e_grid, gs, order, cfg, device: torch.device, metrics=None) -> np.ndarray:
+def continuum_reaction_moments(nuc, rxn, e_grid, gs, order, cfg, place, metrics=None) -> np.ndarray:
     """Applicability-weighted sum over the reaction's law chain: (NE, L+1, G)."""
-    return batched_continuum_moments(nuc, [(rxn, e_grid)], gs, order, cfg, device, metrics)[0]
+    return batched_continuum_moments(nuc, [(rxn, e_grid)], gs, order, cfg, place, metrics)[0]

@@ -101,21 +101,23 @@ def _band_windows(preps, idxs, bounds):
     return b_w, g0
 
 
-def _tiled_twobody_multi(preps, bounds, order, nq, tile_cap, metrics, clamp, device: torch.device):
+def _tiled_twobody_multi(preps, bounds, order, nq, tile_cap, metrics, clamp, place):
     """Batched two-body dispatch: ALL reactions sharing a knot bucket ride
     ONE row pool, with per-row group-band windows where the kinematic reach
     is narrow (see _band_windows).
 
     The kernel takes per-row (c1, c2, awr), so rows from different
-    reactions concatenate freely. Every tile's result is copied back into
-    pinned host memory on the device's stream as soon as it is enqueued, and
-    the host waits once, after the last tile.
+    reactions concatenate freely. Each pool is cut into tiles of tile_cap
+    rows per shard of `place` (a Placement, or one device); every piece's
+    result is copied back into pinned host memory on its shard's stream as
+    soon as it is enqueued, and the host waits once, after the last piece.
 
     preps: list of TwoBodyPrepared. Returns a list of (moments, g0) pairs:
     g0 is None for dense (NE_i, L+1, G) results, else the (NE_i,) window
     offsets of banded (NE_i, L+1, B) results.
     """
-    b = rows_mod.put_rows(bounds, device)
+    place = rows_mod.as_placement(place)
+    b = place.put_replicated(bounds)
     ng = bounds.size - 1
     buckets: dict[int, list[int]] = {}
     for i, prep in enumerate(preps):
@@ -125,7 +127,7 @@ def _tiled_twobody_multi(preps, bounds, order, nq, tile_cap, metrics, clamp, dev
             metrics.record_padding(prep.real_elements, prep.padded_elements)
 
     outs: list[tuple[np.ndarray, np.ndarray | None] | None] = [None] * len(preps)
-    pending = []  # (buffer, start, length, device result)
+    pending = []  # (buffer, start, length, host result)
     slices = []  # (bucket buffer, g0_all | None, prep index, row offset)
     with RunMetrics.span_or_null(metrics, "dispatch.twobody"):
         for k16, idxs in sorted(buckets.items()):
@@ -136,7 +138,7 @@ def _tiled_twobody_multi(preps, bounds, order, nq, tile_cap, metrics, clamp, dev
             c2_all = np.concatenate([np.full(preps[i].e.size, preps[i].c2) for i in idxs])
             aw_all = np.concatenate([np.full(preps[i].e.size, preps[i].awr) for i in idxs])
             ne = e_all.size
-            tile = rows_mod.tile_for(ne, tile_cap)
+            plan = place.plan(ne, tile_cap)
             band = _band_windows(preps, idxs, bounds)
             if band is None:
                 gw, g0_all = ng, None
@@ -150,23 +152,21 @@ def _tiled_twobody_multi(preps, bounds, order, nq, tile_cap, metrics, clamp, dev
             for i in idxs:
                 slices.append((buf, g0_all, i, off))
                 off += preps[i].e.size
-            for start, length in unionize.tile_indices(ne, tile):
-                sl = slice(start, start + length)
-                res = twobody_moments(
-                    rows_mod.put_rows(e_all[sl], device),
-                    rows_mod.put_rows(kn_all[sl], device),
-                    rows_mod.put_rows(pd_all[sl], device),
-                    b if bounds_rows is None else rows_mod.put_rows(bounds_rows[sl], device),
-                    rows_mod.put_rows(c1_all[sl], device),
-                    rows_mod.put_rows(c2_all[sl], device),
-                    rows_mod.put_rows(aw_all[sl], device),
-                    order,
-                    nq,
-                    clamp,
-                )
-                pending.append((buf, start, length, rows_mod.fetch_rows(res)))
+            e_d, kn_d, pd_d, c1_d, c2_d, aw_d = (plan.put(a) for a in (e_all, kn_all, pd_all, c1_all, c2_all, aw_all))
+            br_d = None if bounds_rows is None else plan.put(bounds_rows)
+            for k, sl, start, length in plan.pieces:
+                with place.shard(k):
+                    res = twobody_moments(
+                        e_d[k][sl], kn_d[k][sl], pd_d[k][sl],
+                        b[k] if br_d is None else br_d[k][sl],
+                        c1_d[k][sl], c2_d[k][sl], aw_d[k][sl],
+                        order,
+                        nq,
+                        clamp,
+                    )
+                    pending.append((buf, start, length, place.fetch(res)))
     with RunMetrics.span_or_null(metrics, "wait.twobody"):
-        rows_mod.land_rows(pending, device, "twobody")  # one wait, for every tile's copy
+        place.land(pending, "twobody")  # one wait per shard, for every piece's copy
     for buf, g0_all, i, off in slices:
         n_i = preps[i].e.size
         g0_i = None if g0_all is None else g0_all[off : off + n_i]
@@ -179,7 +179,7 @@ def scattering_moments(
     gs: GroupStructure,
     cfg: RunConfig,
     e_grid: np.ndarray,
-    device: torch.device,
+    place: rows_mod.Placement | torch.device,
     metrics: RunMetrics | None = None,
 ) -> tuple[np.ndarray, np.ndarray, tuple | None]:
     """Combined per-unit-scatter transfer moments over all scattering MTs.
@@ -250,14 +250,14 @@ def scattering_moments(
         log.debug("MT=%d queued (%d/%d rows)", rxn.mt, sub.size, ne)
     if cont_items:
         moms = batched_continuum_moments(
-            nuc, [(rxn, e_grid[i0:]) for rxn, i0 in cont_items], gs, order, cfg, device, metrics
+            nuc, [(rxn, e_grid[i0:]) for rxn, i0 in cont_items], gs, order, cfg, place, metrics
         )
         for (rxn, i0), mom in zip(cont_items, moms):
             _accumulate(rxn, i0, mom)
     if tb_items:
         outs = _tiled_twobody_multi(
             [p for _, _, p in tb_items], gs.bounds, order, cfg.device.quad_points,
-            cfg.device.e_tile, metrics, cfg.clamp_outside, device,
+            cfg.device.e_tile, metrics, cfg.clamp_outside, place,
         )
         for (rxn, i0, _), (mom, g0) in zip(tb_items, outs):
             _accumulate(rxn, i0, mom, g0)
@@ -270,11 +270,12 @@ def process_nuclide(
     nuc: Nuclide,
     gs: GroupStructure,
     cfg: RunConfig,
-    device: torch.device,
+    place: rows_mod.Placement | torch.device,
     metrics: RunMetrics | None = None,
     sab_tables=None,
 ) -> NuclideResult:
-    """Full single-nuclide pipeline -> NuclideResult.
+    """Full single-nuclide pipeline -> NuclideResult, every family's rows
+    split over `place` (a Placement, or one device).
 
     sab_tables: optional list of ThermalTable for this nuclide (cfg.sab);
     bound-thermal replacement supersedes free-gas where tabulated.
@@ -286,7 +287,7 @@ def process_nuclide(
     temps = np.asarray(cfg.temperatures, dtype=np.float64)
     nt = temps.size
 
-    base, sigma_s, elastic0k = scattering_moments(nuc, gs, cfg, e_grid, device, metrics)
+    base, sigma_s, elastic0k = scattering_moments(nuc, gs, cfg, e_grid, place, metrics)
     scatter = np.broadcast_to(base, (nt,) + base.shape).copy()
 
     # Bound-thermal S(alpha,beta) replacement (below each table's range),
@@ -294,9 +295,9 @@ def process_nuclide(
     e_min_by_temp = None
     if sab_tables:
         matched = match_tables(sab_tables, list(cfg.temperatures))
-        scatter = apply_sab(scatter, nuc, gs, cfg, e_grid, matched, device, metrics)
+        scatter = apply_sab(scatter, nuc, gs, cfg, e_grid, matched, place, metrics)
         e_min_by_temp = sab_e_max(matched)
-    scatter = apply_freegas(scatter, nuc, gs, cfg, e_grid, device, metrics, e_min_by_temp, elastic0k)
+    scatter = apply_freegas(scatter, nuc, gs, cfg, e_grid, place, metrics, e_min_by_temp, elastic0k)
     res = NuclideResult(
         name=nuc.name,
         zaid=nuc.zaid,
@@ -308,24 +309,26 @@ def process_nuclide(
         sigma_scatter=sigma_s,
     )
     if nuc.fissionable:
-        chi_collapse(res, nuc, gs, cfg, device, metrics)
+        chi_collapse(res, nuc, gs, cfg, place, metrics)
     if metrics is not None:
         metrics.moments_computed += scatter.size
     return res
 
 
-def _process_with_oom_retry(nuc, gs, cfg, device, metrics, sab_tables=None):
+def _process_with_oom_retry(nuc, gs, cfg, place, metrics, sab_tables=None):
     """Device-OOM recovery (SURVEY.md section 5 'failure detection'): device
     memory grows with the tile size, so halving device.e_tile and retrying
-    is sound. Two halvings, then quarantine; any other device runtime fault
-    quarantines the nuclide instead of killing the sweep."""
+    is sound; every family's per-shard tile scales with it, so the halving
+    holds on every shard. Two halvings, then quarantine; any other device
+    runtime fault quarantines the nuclide instead of killing the sweep."""
     from copy import deepcopy
 
     log = log_mod.get()
+    place = rows_mod.as_placement(place)
     try_cfg = cfg
     for attempt in range(3):
         try:
-            return process_nuclide(nuc, gs, try_cfg, device, metrics, sab_tables)
+            return process_nuclide(nuc, gs, try_cfg, place, metrics, sab_tables)
         except rows_mod.NonFiniteResult as e:
             raise NdppError(f"{e} for {nuc.name}") from e
         except RuntimeError as e:
@@ -336,7 +339,9 @@ def _process_with_oom_retry(nuc, gs, cfg, device, metrics, sab_tables=None):
             if oom and attempt < 2 and try_cfg.device.e_tile > 64:
                 try_cfg = deepcopy(try_cfg)
                 try_cfg.device.e_tile //= 2
-                torch.cuda.empty_cache()
+                for d in _cards(place):
+                    with torch.cuda.device(d):
+                        torch.cuda.empty_cache()
                 log.warning("%s: device OOM — retrying with e_tile=%d", nuc.name, try_cfg.device.e_tile)
                 continue
             label = (
@@ -362,30 +367,67 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
-def run(cfg: RunConfig, device: str | torch.device = "cuda", debug_nans: bool = False) -> RunMetrics:
+def _cards(place: rows_mod.Placement) -> list[torch.device]:
+    """The distinct CUDA devices of a placement, in order."""
+    return list(dict.fromkeys(d for d in place.devices if d.type == "cuda"))
+
+
+def resolve_placement(device, max_devices: int = 0) -> rows_mod.Placement:
+    """The run's devices, one row shard each:
+
+      "cuda"        the first max_devices visible cards (0 = all of them);
+      "cuda:k"      card k alone;
+      "cpu"         one CPU device;
+      a sequence    those devices, in order (a card named twice gives two
+                    shards on it, each with its own stream);
+      a Placement   taken as it is.
+
+    A CUDA device without a card raises ConfigError."""
+    if isinstance(device, rows_mod.Placement):
+        return device
+    if isinstance(device, (list, tuple)):
+        return rows_mod.Placement([resolve_device(d) for d in device])
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        resolve_device(dev)  # raises without a card
+        n = torch.cuda.device_count()
+        n = n if max_devices <= 0 else min(max_devices, n)
+        return rows_mod.Placement([torch.device("cuda", i) for i in range(n)])
+    return rows_mod.Placement([resolve_device(dev)])
+
+
+def run(cfg: RunConfig, device="cuda", debug_nans: bool = False) -> RunMetrics:
     """Full library run: parse -> process -> write, with quarantine + resume.
 
+    device: the run's devices (resolve_placement): "cuda" spreads every
+    family's rows over the first device.max_devices cards (0 = all visible),
+    "cuda:k" or "cpu" runs on one device, a sequence names the shards.
     debug_nans: every family's results are checked for NaN/Inf where they
-    land on the host (parallel.rows.land_rows); a nuclide with one is
+    land on the host (parallel.rows.Placement.land); a nuclide with one is
     quarantined with the family and its name as the reason.
     """
     log = log_mod.get()
-    dev = resolve_device(device)
+    place = resolve_placement(device, cfg.device.max_devices)
+    cards = _cards(place)
     timers = PhaseTimers()
     metrics = RunMetrics()
     t0 = time.perf_counter()
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
+    for card in cards:
+        torch.cuda.reset_peak_memory_stats(card)
+    if cards:
         log.info(
-            "device %s (%s): device.precision=%r runs native float64; two-body group "
+            "devices %s (%s): device.precision=%r runs native float64; two-body group "
             "moments run the CUDA kernel csrc/twobody_inner.cu, the other families run torch ops",
-            dev, torch.cuda.get_device_name(dev), cfg.device.precision,
+            [str(d) for d in place.devices], ", ".join(torch.cuda.get_device_name(d) for d in cards),
+            cfg.device.precision,
         )
     else:
         log.info(
             "device cpu: device.precision=%r runs native float64; two-body group "
             "moments run the kernel's plain torch version", cfg.device.precision,
         )
+    if place.nd > 1:
+        log.info("row-sharded dispatch over %d devices", place.nd)
 
     gs = cfg.group_structure()
     with timers.span("index"):
@@ -484,7 +526,7 @@ def run(cfg: RunConfig, device: str | torch.device = "cuda", debug_nans: bool = 
     profiler = None
     if cfg.device.profile:
         activities = [torch.profiler.ProfilerActivity.CPU]
-        if dev.type == "cuda":
+        if cards:
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=activities)
         profiler.start()
@@ -502,7 +544,7 @@ def run(cfg: RunConfig, device: str | torch.device = "cuda", debug_nans: bool = 
                 with timers.span("parse"):
                     nuc = futures.pop(name).result()
                 with timers.span("compute"):
-                    res = _process_with_oom_retry(nuc, gs, cfg, dev, metrics, _sab_tables(name))
+                    res = _process_with_oom_retry(nuc, gs, cfg, place, metrics, _sab_tables(name))
                 # the write phase is OUTSIDE the quarantine catch: a writer
                 # fault (disk full, permissions) is systemic, not a
                 # per-nuclide data problem — abort the sweep
@@ -537,7 +579,8 @@ def run(cfg: RunConfig, device: str | torch.device = "cuda", debug_nans: bool = 
             trace = Path(cfg.output.path).parent / "torch_trace.json"
             profiler.export_chrome_trace(str(trace))
             # device-busy time: kernels and copies in the trace (they do not
-            # overlap on the one stream the driver uses)
+            # overlap on one stream; with several shards their sum counts
+            # every stream's work, and can exceed the wall)
             events = json.loads(trace.read_text())["traceEvents"]
             busy_s = sum(e.get("dur", 0) for e in events if e.get("cat") in _DEVICE_EVENTS) * 1e-6
             log.info(
@@ -560,7 +603,7 @@ def run(cfg: RunConfig, device: str | torch.device = "cuda", debug_nans: bool = 
         for k, v in metrics.timers.report().items():
             timers.add(k, v)
         metrics.phase_seconds = timers.report()
-        metrics.capture_device_mem(dev)
+        metrics.capture_device_mem(cards)
         for w in writers:
             w.finalize(metrics.to_dict())
     log.info("run complete: %s", metrics.json_line())

@@ -67,12 +67,14 @@ def apply_freegas(
     gs,
     cfg,
     e_grid: np.ndarray,
-    device: torch.device,
+    place: rows_mod.Placement | torch.device,
     metrics=None,
     e_min_by_temp=None,
     elastic0k=None,
 ) -> np.ndarray:
-    """scatter: (NT, NE, L+1, G) 0K combined moments; returns the corrected array.
+    """scatter: (NT, NE, L+1, G) 0K combined moments; returns the corrected
+    array. place: the run's Placement (every tile split over its shards),
+    or one device.
 
     e_min_by_temp: optional per-temperature lower limits (eV) below which the
     free-gas replacement is SKIPPED — rows there are owned by an S(alpha,beta)
@@ -90,6 +92,7 @@ def apply_freegas(
         return scatter
     order = scatter.shape[2] - 1
     e_tile = cfg.device.e_tile
+    place = rows_mod.as_placement(place)
 
     with RunMetrics.span_or_null(metrics, "prep.freegas"):
         sigma_el, sigma_s = elastic_weights(nuc, e_grid)
@@ -133,7 +136,7 @@ def apply_freegas(
         w = min(unionize.bucket_pow2(w), gs.ng)
 
         ns = e_sub.size
-        tile = rows_mod.tile_for(ns, _FREEGAS_TILE, e_tile)
+        plan = place.plan(ns, _FREEGAS_TILE, e_tile)
         # The op normalizes over ITS OWN window, so it always gets a
         # COVERING one: a leading [0, bounds_0) catch group holds the
         # below-range mass, folded into the edge group under clamping and
@@ -142,12 +145,13 @@ def apply_freegas(
         raw = np.empty((ns, order + 1, w + 1))  # [catch, g0..g_{w-1}] per row
         pending = []
         with RunMetrics.span_or_null(metrics, "dispatch.freegas"):
-            bounds_pw = rows_mod.put_replicated(bw, device)
-            e_d = rows_mod.put_rows(e_sub, device)
-            chunk = freegas_ops.chunk_for(tile, CHUNK_BUDGET_BYTES * e_tile // 512)
-            for start, length in unionize.tile_indices(ns, tile):
-                part = freegas_moments_sab(e_d[start : start + length], nuc.awr, kt, bounds_pw, order, chunk=chunk)
-                pending.append((raw, start, length, rows_mod.fetch_rows(part)))
+            bounds_pw = place.put_replicated(bw)
+            e_d = plan.put(e_sub)
+            chunk = freegas_ops.chunk_for(plan.piece_rows, CHUNK_BUDGET_BYTES * e_tile // 512)
+            for sh, sl, start, length in plan.pieces:
+                with place.shard(sh):
+                    part = freegas_moments_sab(e_d[sh][sl], nuc.awr, kt, bounds_pw[sh], order, chunk=chunk)
+                    pending.append((raw, start, length, place.fetch(part)))
         if elastic0k is not None and sub_idx is None and n_lo >= elastic0k[2]:
             zero_k_preps.append(None)  # exact rows: slice the main pool's elastic output
         else:
@@ -165,7 +169,7 @@ def apply_freegas(
     computed = iter(
         driver_mod._tiled_twobody_multi(
             todo_preps, gs.bounds, order, cfg.device.quad_points, _ZERO_K_TILE * e_tile // 512, metrics,
-            cfg.clamp_outside, device,
+            cfg.clamp_outside, place,
         )
         if todo_preps
         else []
@@ -183,7 +187,7 @@ def apply_freegas(
     # Pass 2: wait for the scattering-law tiles and combine per temperature
     for (k, kt, rows, sub_idx, e_sub, w, raw, pending), f0k in zip(plans, f0k_all):
         with RunMetrics.span_or_null(metrics, "wait.freegas"):
-            rows_mod.land_rows(pending, device, "freegas")
+            place.land(pending, "freegas")
         ffg = np.zeros((e_sub.size, order + 1, gs.ng))
         ffg[:, :, :w] = raw[:, :, 1:]
         if cfg.clamp_outside:

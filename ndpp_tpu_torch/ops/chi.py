@@ -11,6 +11,10 @@ Paths:
     Gauss-Legendre of the (entire) raw spectrum, with the ACE restriction
     E' <= E - U truncating the support and renormalizing.
 
+The closed-form integrals of the analytic spectra and their tail
+complements (_maxwell_*, _evap_*, _watt_*) are the reference's independent
+check of the quadrature path; the production path does not call them.
+
 Plain float64 torch functions over incident-energy rows, on the device of
 their arguments; they share the edge-group clamping convention of
 ops.twobody.
@@ -18,10 +22,14 @@ ops.twobody.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ndpp_tpu_torch.ops.legendre import gl_nodes_weights
 from ndpp_tpu_torch.ops.segment import effective_bounds
+
+_SQRT_PI = math.sqrt(math.pi)
 
 
 def tabular_group_fractions(e_knots, pdf, bounds, clamp: bool = True):
@@ -57,6 +65,65 @@ def tabular_group_fractions(e_knots, pdf, bounds, clamp: bool = True):
     h = (b - x0).clamp_min(0.0)
     cum = torch.gather(prefix, 1, idx) + h * (y0 + 0.5 * torch.gather(slope, 1, idx) * h)  # (T, G+1)
     return cum[:, 1:] - cum[:, :-1]
+
+
+def _maxwell_integral(x, theta):
+    """I(x) = int_0^x sqrt(t) exp(-t/theta) dt (unnormalized)."""
+    x = torch.clamp_min(x, 0.0)
+    z = torch.sqrt(x / theta)
+    return theta**1.5 * (_SQRT_PI / 2.0) * torch.special.erf(z) - theta * torch.sqrt(x) * torch.exp(-x / theta)
+
+
+def _maxwell_comp(x, theta):
+    """Ic(x) = int_x^inf sqrt(t) exp(-t/theta) dt (tail-accurate complement)."""
+    x = torch.clamp_min(x, 0.0)
+    z = torch.sqrt(x / theta)
+    return theta**1.5 * (_SQRT_PI / 2.0) * torch.special.erfc(z) + theta * torch.sqrt(x) * torch.exp(-x / theta)
+
+
+def _evap_integral(x, theta):
+    """I(x) = int_0^x t exp(-t/theta) dt."""
+    r = torch.clamp_min(x, 0.0) / theta
+    # -expm1(-r) - r*exp(-r) is accurate for small r too
+    return theta**2 * (-torch.expm1(-r) - r * torch.exp(-r))
+
+
+def _evap_comp(x, theta):
+    """Ic(x) = int_x^inf t exp(-t/theta) dt = theta^2 e^{-x/theta} (1 + x/theta)."""
+    r = torch.clamp_min(x, 0.0) / theta
+    return theta**2 * torch.exp(-r) * (1.0 + r)
+
+
+def _watt_half(s, h, a):
+    """int_0^s u exp(-(u-h)^2/a) du  (building block of the Watt integral)."""
+    sq = torch.sqrt(a)
+    term_exp = 0.5 * a * (torch.exp(-(h**2) / a) - torch.exp(-((s - h) ** 2) / a))
+    term_erf = h * (_SQRT_PI * sq / 2.0) * (torch.special.erf((s - h) / sq) + torch.special.erf(h / sq))
+    return term_exp + term_erf
+
+
+def _watt_half_comp(s, h, a):
+    """int_s^inf u exp(-(u-h)^2/a) du."""
+    sq = torch.sqrt(a)
+    return 0.5 * a * torch.exp(-((s - h) ** 2) / a) + h * (_SQRT_PI * sq / 2.0) * torch.special.erfc((s - h) / sq)
+
+
+def _watt_integral(x, a, b):
+    """I(x) = int_0^x exp(-t/a) sinh(sqrt(b t)) dt (unnormalized, exact).
+
+    Derivation: t = u^2, sinh = (e^{+cu} - e^{-cu})/2 with c = sqrt(b);
+    complete the square. The common factor exp(ab/4) is kept explicit.
+    """
+    s = torch.sqrt(torch.clamp_min(x, 0.0))
+    h = a * torch.sqrt(b) / 2.0
+    return torch.exp(a * b / 4.0) * (_watt_half(s, h, a) - _watt_half(s, -h, a))
+
+
+def _watt_comp(x, a, b):
+    """Ic(x) = int_x^inf exp(-t/a) sinh(sqrt(b t)) dt."""
+    s = torch.sqrt(torch.clamp_min(x, 0.0))
+    h = a * torch.sqrt(b) / 2.0
+    return torch.exp(a * b / 4.0) * (_watt_half_comp(s, h, a) - _watt_half_comp(s, -h, a))
 
 
 def _raw_spectrum(law: int, x, theta, b_param):

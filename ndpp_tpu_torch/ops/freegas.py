@@ -5,9 +5,9 @@ freegas_moments_sab with its density _sab_dens, the structurally independent
 panel-split kernel freegas_moments_panelsplit with its (v_r, V_cm)
 quadrature density _pointwise_dens (the kernel selfcheck holds the production
 one against), and the outgoing-axis machinery _outgoing_panelsplit that both
-share. The reference's other cross-checks (freegas_moments,
-freegas_moments_pointwise, freegas_sigma_eff_ratio) serve only its tests and
-oracle and are not ported.
+share. At the end of the module, the reference's cross-checks that no driver
+calls: the kink-panel kernel freegas_moments, the pointwise kernel
+freegas_moments_pointwise and the validation hook freegas_sigma_eff_ratio.
 
 Model: Maxwellian target of mass ratio A at temperature T (kT in eV),
 constant free-atom cross section, isotropic CM scattering. With the
@@ -34,11 +34,14 @@ kernel's lax.scan over v_r panels is a Python loop too, and only the L+1
 
 from __future__ import annotations
 
+import math
+from math import comb
+
 import numpy as np
 import torch
 
 from ndpp_tpu_torch.ops.continuum import CHUNK_BUDGET_BYTES
-from ndpp_tpu_torch.ops.legendre import gl_nodes_weights
+from ndpp_tpu_torch.ops.legendre import gl_nodes_weights, legendre_all
 from ndpp_tpu_torch.ops.panelsplit import lagrange_cumulants
 
 # per-row outer v_r panel offsets of _pointwise_dens in units of 1/beta,
@@ -420,3 +423,289 @@ def _pointwise_dens(
                 pb_prev, pb_cur = pb_cur, pb_next
                 acc[l + 1] = acc[l + 1] + torch.sum(dens * pa_cur * pb_cur, dim=(2, 3))
     return acc
+
+
+# ---------------------------------------------------------------------------
+# The reference's cross-checks: the kink-panel ("grouped") kernel, the
+# pointwise-E' kernel with panels at every group boundary, and the
+# sigma_eff/sigma_free validation hook. No driver calls them; the tests hold
+# them against their JAX functions and against the production kernel.
+
+
+def _vcm_panel_nodes(v, vr, u, awr, beta, xc, wc, sb=None):
+    """Graded V_cm quadrature nodes/weights for given (row, v_r) values.
+
+    v/vr/u: (...,) tensors; awr/beta broadcast with them. When ``sb``
+    ((G+1,) sqrt-boundaries) is given, the exact kink lines V_cm = sb_g -+ u
+    (where the inner group-clipped integral changes branch) are inserted as
+    panel edges, keeping every GL panel smooth. Returns cc, w_c with a
+    flattened trailing node axis.
+    """
+    a_ratio = (awr + 1.0) / awr
+    clo = torch.abs(v - u)
+    chi_ = v + u
+    # weight peak: V^2 = 0 at V_cm*^2 = v^2/(A+1) - A vr^2/(A+1)^2
+    vstar = torch.sqrt(torch.clamp_min(v * v / (awr + 1.0) - awr * vr * vr / (awr + 1.0) ** 2, 0.0))
+    anchor = _clip(vstar, clo, chi_)
+    # two ladder scales: quadratic regime (peak interior) and linear regime
+    # (peak clipped at the domain edge, where the Gaussian band is narrower)
+    w_quad = 1.0 / (beta * torch.sqrt(a_ratio))
+    w_lin = 1.0 / (beta * beta * 2.0 * torch.clamp_min(anchor, 1e-30) * a_ratio)
+    offs = torch.as_tensor(_VCM_OFFSETS, dtype=v.dtype, device=v.device)
+    lo, hi = clo[..., None], chi_[..., None]
+    parts = [
+        lo,
+        _clip(anchor[..., None] + w_quad[..., None] * offs, lo, hi),
+        _clip(anchor[..., None] + w_lin[..., None] * offs, lo, hi),
+        hi,
+        # |V_cm - u| branch switch: the inner-range lower end kinks at V_cm = u
+        _clip(u[..., None], lo, hi),
+    ]
+    if sb is not None:
+        finite = torch.where(torch.isfinite(sb), sb, torch.zeros_like(sb))
+        # kink families |V_cm - u| = sb_g and V_cm + u = sb_g reduce to the
+        # two value sets u + sb_g and |u - sb_g|
+        parts.append(_clip(u[..., None] + finite, lo, hi))
+        parts.append(_clip(torch.abs(u[..., None] - finite), lo, hi))
+    edges = torch.sort(torch.cat(parts, dim=-1), dim=-1).values
+    mid = 0.5 * (edges[..., 1:] + edges[..., :-1])
+    half = 0.5 * (edges[..., 1:] - edges[..., :-1])
+    cc = (mid[..., None] + half[..., None] * xc).reshape(*mid.shape[:-1], -1)
+    w_c = (half[..., None] * wc).reshape(*mid.shape[:-1], -1)
+    return cc, w_c
+
+
+def _leg_monomial_coeffs(order: int) -> list[np.ndarray]:
+    """Monomial coefficients of P_l, l = 0..order (exact in f64 for l <= ~12)."""
+    return [np.polynomial.legendre.leg2poly(np.eye(l + 1)[l]) for l in range(order + 1)]
+
+
+def _inner_closed_form(lo, hi, cc, u, order: int):
+    """J_l = (1/(2 C u)) * int_lo^hi P_l((y^2 + D)/(2 C y)) y dy, D = C^2 - u^2.
+
+    lo/hi/cc/u broadcastable tensors (pre-clipped, lo <= hi); returns a list
+    of L+1 tensors. Exact (power rule + log term). The lower limit is floored
+    as in the reference (which keeps its Laurent terms inside the TPU's
+    emulated-f64 range): it drops outgoing energies below ~floor^2 eV.
+    """
+    d = cc * cc - u * u
+    inv2c = 1.0 / (2.0 * cc)
+    p_min = min(2 - order, 1)
+    p_max = order + 2
+    lo_floor = 10.0 ** (-min(30.0 / (order - 2), 12.0)) if order > 2 else 1e-12
+    lo = torch.clamp_min(lo, lo_floor)
+    hi = torch.maximum(hi, lo)
+    pow_lo = {0: torch.ones_like(lo), 1: lo}
+    pow_hi = {0: torch.ones_like(hi), 1: hi}
+    for p in range(2, p_max + 1):
+        pow_lo[p] = pow_lo[p - 1] * lo
+        pow_hi[p] = pow_hi[p - 1] * hi
+    inv_lo, inv_hi = 1.0 / lo, 1.0 / hi
+    for p in range(-1, p_min - 1, -1):
+        pow_lo[p] = pow_lo[p + 1] * inv_lo
+        pow_hi[p] = pow_hi[p + 1] * inv_hi
+    log_diff = torch.log(torch.clamp_min(hi, 1e-30)) - torch.log(torch.clamp_min(lo, 1e-30))
+
+    out = []
+    for a in _leg_monomial_coeffs(order):
+        acc = torch.zeros_like(lo)
+        for k in range(a.size):
+            if a[k] == 0.0:
+                continue
+            for m in range(k + 1):
+                p_exp = 2 * m + 2 - k  # antiderivative exponent of the y^{2m+1-k} term
+                scale = float(a[k]) * comb(k, m) * inv2c**k * (d ** (k - m) if k - m > 0 else 1.0)
+                if p_exp == 0:
+                    acc = acc + scale * log_diff
+                else:
+                    acc = acc + (scale / p_exp) * (pow_hi[p_exp] - pow_lo[p_exp])
+        out.append(acc * inv2c / u)  # the 1/(2 C u) prefactor
+    return out
+
+
+def _effective_sqrt_bounds(bounds, clamp: bool):
+    """sqrt of group boundaries, with edge groups extended under clamping."""
+    sb = torch.sqrt(torch.clamp_min(bounds, 0.0))
+    if not clamp:
+        return sb
+    return torch.cat([sb.new_zeros(1), sb[1:-1], sb.new_full((1,), float("inf"))])
+
+
+def freegas_moments(e, awr, kt, bounds, order: int, nq_r: int = 8, nq_c: int = 12, clamp: bool = True):
+    """Free-gas transfer moments by the kink-panel kernel: (T, L+1, G), rows
+    normalized per scatter.
+
+    e: (T,) incident energies (eV); awr, kt: scalars or (T,); bounds: (G+1,)
+    group boundaries (eV). The (v_r, V_cm) quadrature takes O(G) exact
+    breakpoints in both dimensions and the innermost v' integral is closed
+    form per group (_inner_closed_form). The reference's lax.scan over v_r
+    nodes is a Python loop over them.
+    """
+    dtype, dev = e.dtype, e.device
+    ng = bounds.shape[0] - 1
+    v = torch.sqrt(e)
+    awr, kt = _per_row(awr, e), _per_row(kt, e)
+    gamma = awr / (awr + 1.0)
+    beta = torch.sqrt(awr / kt)
+    inv_beta = 1.0 / beta
+    sb = _effective_sqrt_bounds(bounds, clamp)
+
+    # per-row outer v_r panels: Maxwellian-graded offsets plus the closed-form
+    # kinks where a split line V_cm = sb_g -+ u crosses the V_cm domain ends:
+    # v_r in {(v + sb_g)/2gamma, |v - sb_g|/2gamma}
+    offsets = torch.as_tensor(_VR_OFFSETS, dtype=dtype, device=dev)
+    graded_r = v[:, None] + inv_beta[:, None] * offsets[None, :]
+    lo_r = torch.clamp_min(v - 8.0 * inv_beta, 0.0)[:, None]
+    hi_r = (v + 8.0 * inv_beta)[:, None]
+    sbf = torch.where(torch.isfinite(sb), sb, torch.zeros_like(sb))[None, :]
+    g2 = (2.0 * gamma)[:, None]
+    kinks = _clip(torch.cat([(v[:, None] + sbf) / g2, torch.abs(v[:, None] - sbf) / g2], dim=1), lo_r, hi_r)
+    edges = torch.sort(torch.cat([torch.clamp_min(graded_r, 0.0), kinks], dim=1), dim=1).values
+    mid_p = 0.5 * (edges[:, 1:] + edges[:, :-1])
+    half_p = 0.5 * (edges[:, 1:] - edges[:, :-1])
+    xr, wr = gl_nodes_weights(nq_r)
+    xc, wc = (torch.as_tensor(a, dtype=dtype, device=dev) for a in gl_nodes_weights(nq_c))
+    a_ratio = (awr + 1.0) / awr
+    v2 = (v * v)[:, None]
+
+    num = e.new_zeros((e.shape[0], order + 1, ng))
+    den = torch.zeros_like(e)
+    for p in range(mid_p.shape[1]):
+        for q in range(nq_r):
+            vr = mid_p[:, p] + half_p[:, p] * float(xr[q])  # (T,)
+            w_r = half_p[:, p] * float(wr[q])
+            u = gamma * vr
+            cc, w_c = _vcm_panel_nodes(v, vr, u, awr, beta, xc, wc, sb)  # (T, C)
+            vsq = -v2 / awr[:, None] + (vr * vr)[:, None] / (awr + 1.0)[:, None] + cc * cc * a_ratio[:, None]
+            # exponent clamped at 0: vsq >= 0 wherever the weight is live
+            weight = (vr * vr)[:, None] * cc * torch.exp(torch.clamp_max(-(beta * beta)[:, None] * vsq, 0.0)) * w_c
+            weight = weight * w_r[:, None]
+            c_a = torch.clamp((v2 + cc * cc - (u * u)[:, None]) / (2.0 * v[:, None] * cc), -1.0, 1.0)
+            pl_a = legendre_all(c_a, order)  # (T, C, L+1)
+            # inner: closed form per group over [max(|C-u|, sb_g), min(C+u, sb_{g+1})]
+            u3, cc3 = u[:, None, None], cc[:, :, None]
+            lo_g = torch.maximum(torch.abs(cc3 - u3), sb[None, None, :-1])  # (T, C, G)
+            hi_g = torch.minimum(cc3 + u3, sb[None, None, 1:])
+            valid = hi_g > lo_g
+            one = torch.ones_like(lo_g)
+            j_list = _inner_closed_form(torch.where(valid, lo_g, one), torch.where(valid, hi_g, one), cc3, u3, order)
+            num += torch.stack(
+                [
+                    torch.einsum("tc,tc,tcg->tg", weight, pl_a[:, :, l], torch.where(valid, j_list[l], 0.0))
+                    for l in range(order + 1)
+                ],
+                dim=1,
+            )
+            den += torch.sum(weight, dim=1)
+    den = torch.where(den > 0, den, torch.ones_like(den))
+    return num / den[:, None, None]
+
+
+def freegas_sigma_eff_ratio(e, awr: float, kt: float, nq_r: int = 8, nq_c: int = 8):
+    """sigma_eff/sigma_free = vbar_r / v computed with the SAME quadrature.
+
+    Validation hook: the analytic result is
+      (1 + 1/(2x^2)) erf(x) + exp(-x^2)/(sqrt(pi) x),  x = sqrt(A E / kT).
+    Agreement checks the (v_r, V_cm) quadrature independently of any moments.
+    awr and kt are scalars.
+    """
+    dtype, dev = e.dtype, e.device
+    v = torch.sqrt(e)
+    awr = torch.as_tensor(awr, dtype=dtype, device=dev)
+    gamma = awr / (awr + 1.0)
+    beta = torch.sqrt(awr / kt)
+    offsets = torch.as_tensor(_VR_OFFSETS, dtype=dtype, device=dev)
+    edges = torch.sort(torch.clamp_min(v[:, None] + (1.0 / beta) * offsets[None, :], 0.0), dim=1).values
+    mid_p = 0.5 * (edges[:, 1:] + edges[:, :-1])
+    half_p = 0.5 * (edges[:, 1:] - edges[:, :-1])
+    xr, wr, xc, wc = (
+        torch.as_tensor(a, dtype=dtype, device=dev) for a in (*gl_nodes_weights(nq_r), *gl_nodes_weights(nq_c))
+    )
+    vr = mid_p[:, :, None] + half_p[:, :, None] * xr  # (T, P, R)
+    w_r = half_p[:, :, None] * wr
+    u = gamma * vr
+    cc, w_c = _vcm_panel_nodes(v[:, None, None].expand(vr.shape), vr, u, awr, beta, xc, wc)  # (T, P, R, C)
+    vsq = -(v * v)[:, None, None, None] / awr + (vr * vr)[..., None] / (awr + 1.0) + cc * cc * ((awr + 1.0) / awr)
+    wgt = (vr * vr)[..., None] * cc * torch.exp(torch.clamp_max(-(beta * beta) * vsq, 0.0)) * w_c * w_r[..., None]
+    # vbar_r = (2 beta^3 / (sqrt(pi) gamma v)) * N_full; sigma_eff/sigma_free = vbar_r / v
+    n_full = torch.sum(wgt, dim=(1, 2, 3))
+    return 2.0 * beta**3 * n_full / (math.sqrt(math.pi) * gamma * v * v)
+
+
+def freegas_moments_pointwise(
+    e,
+    awr,
+    kt,
+    bounds,
+    order: int,
+    nq_g: int = 8,
+    nq_r: int = 8,
+    nq_c: int = 8,
+    chunk: int = 8,
+    nfill_r: int = 7,
+    nfill_c: int = 7,
+    ngeo_c: int = 8,
+):
+    """Free-gas transfer moments via the pointwise-E' path: (T, L+1, G).
+
+    The density of _pointwise_dens at GL points of outgoing y-panels cut at
+    every group boundary, the cusp y = v and graded ladders around it and
+    around sqrt(alpha) v; each panel's GL sum lands in the group holding its
+    midpoint. bounds must be FINITE and COVER the kinematically reachable
+    outgoing range: rows are normalized by their own l = 0 total. chunk:
+    y-panels evaluated at a time (the result does not depend on it).
+    """
+    dtype, dev = e.dtype, e.device
+    ng = bounds.shape[0] - 1
+    tt = e.shape[0]
+    v = torch.sqrt(e)
+    awr, kt = _per_row(awr, e), _per_row(kt, e)
+    gamma = awr / (awr + 1.0)
+    beta = torch.sqrt(awr / kt)
+    inv_beta = 1.0 / beta
+    a_ratio = (awr + 1.0) / awr
+    sb = torch.sqrt(torch.clamp_min(bounds, 0.0))  # (G+1,) finite
+
+    # outgoing panels in y: group boundaries, the cusp at y = v, and graded
+    # ladders around the thermal spike and the smeared 0K down-scatter edge
+    delta = 2.0 * gamma * inv_beta
+    lad = torch.as_tensor(_Y_LADDER, dtype=dtype, device=dev)
+    y_alpha = v * torch.abs(awr - 1.0) / (awr + 1.0)
+    extra = torch.cat(
+        [v[:, None] + delta[:, None] * lad, y_alpha[:, None] + delta[:, None] * lad, torch.stack([v, y_alpha], dim=1)],
+        dim=1,
+    )
+    extra = torch.clamp(extra, sb[0], sb[-1])
+    y_edges = torch.sort(torch.cat([sb.expand(tt, ng + 1), extra], dim=1), dim=1).values
+    npan = y_edges.shape[1] - 1
+    pmid = 0.5 * (y_edges[:, 1:] + y_edges[:, :-1])  # (T, P)
+    phalf = 0.5 * (y_edges[:, 1:] - y_edges[:, :-1])
+    pg = (torch.searchsorted(bounds, (pmid * pmid).contiguous(), right=True) - 1).clamp_(0, ng - 1)  # by midpoint
+
+    xg, wg, xr, wr, xc, wc = (
+        torch.as_tensor(a, dtype=dtype, device=dev)
+        for a in (*gl_nodes_weights(nq_g), *gl_nodes_weights(nq_r), *gl_nodes_weights(nq_c))
+    )
+    lo_r_dom = torch.clamp_min(v - 8.0 * inv_beta, 0.0)
+    hi_r_dom = v + 8.0 * inv_beta
+    ladder = torch.as_tensor(_VR_OFFSETS, dtype=dtype, device=dev)
+    offs_c = torch.as_tensor(_VCM_OFFSETS, dtype=dtype, device=dev)
+
+    panel_vals = e.new_zeros((tt, npan, order + 1))
+    for c0 in range(0, npan, chunk):
+        pm, ph = pmid[:, c0 : c0 + chunk], phalf[:, c0 : c0 + chunk]
+        n = pm.shape[1]
+        y = (pm[:, :, None] + ph[:, :, None] * xg).reshape(tt, n * nq_g)
+        wy = (ph[:, :, None] * wg).reshape(tt, n * nq_g) * 2.0 * y  # dE' = 2y dy
+        dsig = _pointwise_dens(
+            y, v, awr, gamma, beta, inv_beta, a_ratio, lo_r_dom, hi_r_dom,
+            ladder, offs_c, xr, wr, xc, wc, order, nfill_r, nfill_c, ngeo_c,
+        )
+        vals = torch.stack(dsig, dim=-1) * wy[..., None]  # (T, NY, L+1)
+        panel_vals[:, c0 : c0 + n] = vals.reshape(tt, n, nq_g, order + 1).sum(dim=2)
+
+    # normalization: the numerator's own l = 0 total over the covering window
+    n_full = panel_vals[:, :, 0].sum(dim=1)
+    n_full = torch.where(n_full > 0, n_full, torch.ones_like(n_full))
+    out = e.new_zeros((tt, ng, order + 1)).scatter_add_(1, pg[:, :, None].expand(tt, npan, order + 1), panel_vals)
+    return out.transpose(1, 2) / n_full[:, None, None]

@@ -21,8 +21,9 @@ on a CUDA tensor, so the (T, L+1, S) intermediate never reaches device
 memory, and the plain torch version ``twobody_group_moments_ref`` (inner
 stage, then epilogue) on a CPU tensor; there is no fallback from one to the
 other. The kernel library is built with nvcc at first use into
-build/ndpp_tpu_torch/ at the checkout root, keyed by the source's hash, and
-loaded with ctypes.
+utils.build.build_dir() (build/ndpp_tpu_torch/ at the root of a source
+checkout, the per-user cache for an installed package), keyed by the
+source's hash, and loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 from functools import lru_cache
 from pathlib import Path
 
@@ -40,12 +42,13 @@ import torch
 
 from ndpp_tpu_torch.ops.legendre import gl_nodes_weights
 from ndpp_tpu_torch.ops.segment import segment_group_sum
+from ndpp_tpu_torch.utils.build import build_dir
 
 MAX_ORDER = 10
 MAX_NQ = 64  # GL nodes the kernel's parameter block holds (kMaxNq)
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "twobody_inner.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ndpp_tpu_torch"
+_BUILD_DIR = build_dir()
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
@@ -157,12 +160,16 @@ def twobody_group_moments(mid, half, a_s, b_s, kin, valid_e, bounds, order: int,
     if rc != 0:
         raise RuntimeError(f"twobody_group_moments: kernel launch failed with cudaError {rc}")
     twobody_group_moments.launches += 1
+    twobody_group_moments.launches_by_stream[stream] += 1
     return out
 
 
 # Launches of the CUDA kernel since the last reset (a run shows with it that
-# its main path went through the kernel). CPU calls never count.
+# its main path went through the kernel), in all and by the CUDA stream that
+# took them (its cudaStream_t handle; a row split shows that every shard's
+# stream launched). CPU calls never count.
 twobody_group_moments.launches = 0
+twobody_group_moments.launches_by_stream = Counter()
 
 
 def _nvcc() -> str:

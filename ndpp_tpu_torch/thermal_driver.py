@@ -86,12 +86,29 @@ def match_tables(tables: list[ThermalTable], temps_k: list[float]):
     return out
 
 
+def _split_rows(place: rows_mod.Placement, pending: list, shape: tuple, op, *rows) -> np.ndarray:
+    """One untiled dispatch of op over `rows` (host arrays sharing their
+    first axis), split over the shards of `place`: op(k, *row slices) runs
+    under shard k. Returns the host buffer of `shape` that place.land fills
+    from the pending copies this appends."""
+    buf = np.empty(shape)
+    plan = place.whole(shape[0])
+    dev = [plan.put(a) for a in rows]
+    for k, sl, start, length in plan.pieces:
+        with place.shard(k):
+            pending.append((buf, start, length, place.fetch(op(k, *(d[k][sl] for d in dev)))))
+    return buf
+
+
 def apply_sab(
-    scatter: np.ndarray, nuc, gs, cfg, e_grid: np.ndarray, tables, device: torch.device, metrics=None
+    scatter: np.ndarray, nuc, gs, cfg, e_grid: np.ndarray, tables, place: rows_mod.Placement | torch.device,
+    metrics=None,
 ) -> np.ndarray:
     """scatter: (NT, NE, L+1, G) 0K combined moments; returns corrected array.
 
-    tables: per-temperature ThermalTable (from match_tables); None entries skip.
+    tables: per-temperature ThermalTable (from match_tables); None entries
+    skip. place: the run's Placement (each channel's rows split over its
+    shards), or one device.
     """
     from ndpp_tpu_torch import driver as driver_mod
 
@@ -107,10 +124,8 @@ def apply_sab(
         # user structure
         bounds_cl[0] = 0.0
         bounds_cl[-1] = np.inf
-    bounds_d = rows_mod.put_replicated(bounds_cl, device)
-
-    def put(x):
-        return rows_mod.put_rows(x, device)
+    place = rows_mod.as_placement(place)
+    bounds_d = place.put_replicated(bounds_cl)
 
     prep_cache: dict[str, object] = {}
     for k, tab in enumerate(tables):
@@ -126,10 +141,15 @@ def apply_sab(
             prep = prep_cache[tab.name] = prepare_thermal(tab, order)
 
         # --- the table's channels on the device, one wait for both results
+        pending = []
         with RunMetrics.span_or_null(metrics, "dispatch.sab"):
             if prep.kind == "continuous":
                 # at the table's incident energies; lin-log onto the rows below
-                inel = thermal_continuous_moments(put(prep.e_knots), put(prep.pdf), put(prep.am), bounds_d, order)
+                f_inel = _split_rows(
+                    place, pending, (prep.e_knots.shape[0], order + 1, gs.ng),
+                    lambda k, kn, pdf, am: thermal_continuous_moments(kn, pdf, am, bounds_d[k], order),
+                    prep.e_knots, prep.pdf, prep.am,
+                )
             else:
                 # discrete lines are deltas: interpolating PLACED (L+1, G)
                 # matrices across incident energy would smear each line over
@@ -144,26 +164,36 @@ def apply_sab(
                 else:
                     e_lines = np.broadcast_to(prep.e_out[0], (n_rows,) + prep.e_out.shape[1:])
                     am_lines = np.broadcast_to(prep.am_lines[0], (n_rows,) + prep.am_lines.shape[1:])
-                inel = thermal_discrete_moments(
-                    put(e_lines), put(prep.w_lines), put(am_lines), bounds_d, clamp=cfg.clamp_outside
+                w_lines = place.put_replicated(prep.w_lines)
+                f_inel = _split_rows(
+                    place, pending, (n_rows, order + 1, gs.ng),
+                    lambda k, e_out, am: thermal_discrete_moments(
+                        e_out, w_lines[k], am, bounds_d[k], clamp=cfg.clamp_outside
+                    ),
+                    e_lines, am_lines,
                 )
             # elastic channel, exact placement per row
-            el = None
+            f_el = None
             if prep.elastic_kind == "coherent":
-                el = coherent_elastic_moments(put(e_rows), put(prep.e_el), put(prep.bragg_s), bounds_d, order)
+                edges, s_b = place.put_replicated(prep.e_el), place.put_replicated(prep.bragg_s)
+                f_el = _split_rows(
+                    place, pending, (n_rows, order + 1, gs.ng),
+                    lambda k, e: coherent_elastic_moments(e, edges[k], s_b[k], bounds_d[k], order),
+                    e_rows,
+                )
             elif prep.elastic_kind == "incoherent":
                 fvec = interp_rows_loglin(e_rows, prep.e_el, prep.am_el)  # (NR, L+1)
-                el = incoherent_elastic_placement(put(fvec), put(e_rows), bounds_d)
-            pending = []
-            for res in (inel, el):
-                if res is not None:
-                    pending.append((np.empty(tuple(res.shape)), 0, res.shape[0], rows_mod.fetch_rows(res)))
+                f_el = _split_rows(
+                    place, pending, (n_rows, order + 1, gs.ng),
+                    lambda k, f, e: incoherent_elastic_placement(f, e, bounds_d[k]),
+                    fvec, e_rows,
+                )
         with RunMetrics.span_or_null(metrics, "wait.sab"):
-            rows_mod.land_rows(pending, device, "sab")
-        f_inel = pending[0][0]
+            place.land(pending, "sab")
         if prep.kind == "continuous":
             f_inel = interp_rows_loglin(e_rows, prep.e_in, f_inel)  # (NR, L+1, G)
-        f_el = pending[1][0] if el is not None else np.zeros_like(f_inel)
+        if f_el is None:
+            f_el = np.zeros_like(f_inel)
         sig_i = np.interp(e_rows, prep.e_in, prep.sigma_in, left=0.0, right=0.0)
         sig_e = np.zeros_like(e_rows)
         if prep.elastic_kind == "coherent":
@@ -175,7 +205,7 @@ def apply_sab(
         # (pooled dispatch, tile cap e_tile), densified on the host
         (mom, g0), = driver_mod._tiled_twobody_multi(
             [prepare_twobody(nuc, nuc.elastic, e_rows)], gs.bounds, order, cfg.device.quad_points,
-            cfg.device.e_tile, None, cfg.clamp_outside, device,
+            cfg.device.e_tile, None, cfg.clamp_outside, place,
         )
         f_el0k = banding.densify(mom, g0, gs.ng)
 

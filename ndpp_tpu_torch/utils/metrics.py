@@ -60,11 +60,13 @@ class RunMetrics:
         self.padding_real_elements += int(real)
         self.padding_total_elements += int(total)
 
-    def capture_device_mem(self, device: torch.device) -> None:
-        """Peak bytes the caching allocator handed out on a CUDA device since
-        the last reset_peak_memory_stats (the driver resets at run start)."""
-        if device.type == "cuda":
-            self.device_mem_highwater_bytes = int(torch.cuda.max_memory_allocated(device))
+    def capture_device_mem(self, devices) -> None:
+        """Peak bytes the caching allocator handed out on any one of the CUDA
+        devices since the last reset_peak_memory_stats (the driver resets at
+        run start)."""
+        peaks = [int(torch.cuda.max_memory_allocated(d)) for d in devices if d.type == "cuda"]
+        if peaks:
+            self.device_mem_highwater_bytes = max(peaks)
 
     def to_dict(self) -> dict:
         return {

@@ -23,6 +23,8 @@ from ndpp_tpu_torch import native as t_native
 from ndpp_tpu_torch.parallel import rows as rows_mod
 from ndpp_tpu_torch.utils.errors import NdppError
 
+torch.set_num_threads(1)  # one thread per process: pytest-xdist runs several beside each other
+
 
 @pytest.fixture(scope="module")
 def library(tmp_path_factory):

@@ -10,6 +10,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from ndpp_tpu import banding as j_banding
 from ndpp_tpu import continuum_driver as j_cdrv
@@ -24,6 +25,8 @@ from ndpp_tpu_torch.host import angular_moments as t_am
 from ndpp_tpu_torch.host import prep as t_prep
 from ndpp_tpu_torch.host import prep_continuum as t_pc
 from ndpp_tpu_torch.host.ace import synth as t_synth
+
+torch.set_num_threads(1)  # one thread per process: pytest-xdist runs several beside each other
 
 ROOT = Path(__file__).resolve().parents[1]
 CONTINUUM_FIXTURES = ["kalbach", "law61", "law61cm", "law67", "law4nd", "law1", "law5", "nbody"]
@@ -151,11 +154,17 @@ def test_tiles_and_chunk_shrink_with_e_tile():
     """The driver's device-OOM retry halves device.e_tile: the continuum
     tiles and the chunk's byte budget must follow it."""
     from ndpp_tpu_torch.ops import continuum as cont_ops
+    from ndpp_tpu_torch.parallel.rows import Placement
 
-    assert t_cdrv._tiles(1000, 256, 512)[0] == 256
-    tile, spans = t_cdrv._tiles(1000, 256, 256)
-    assert tile == 128 and spans[0] == (0, 128) and spans[-1] == (896, 104)
-    assert t_cdrv._tiles(5, 256, 512) == (5, [(0, 5)])
+    one = Placement(["cpu"])  # the driver's tiles: Placement.plan at the family's cap
+
+    def spans(plan):
+        return [(start, length) for _, _, start, length in plan.pieces]
+
+    assert one.plan(1000, 256, 512).piece_rows == 256
+    plan = one.plan(1000, 256, 256)
+    assert plan.piece_rows == 128 and spans(plan)[0] == (0, 128) and spans(plan)[-1] == (896, 104)
+    assert spans(one.plan(5, 256, 512)) == [(0, 5)]
     full = cont_ops.chunk_for(256, 12, 8, 108, 1557, cont_ops.CHUNK_BUDGET_BYTES)
     half = cont_ops.chunk_for(128, 12, 8, 108, 1557, cont_ops.CHUNK_BUDGET_BYTES // 2)
     assert 1 <= full == half < 1557  # half the rows under half the budget: the same panels, half the bytes

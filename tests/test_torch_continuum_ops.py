@@ -32,6 +32,8 @@ from ndpp_tpu_torch.ops import chi as t_chi
 from ndpp_tpu_torch.ops import continuum as t_cont
 from ndpp_tpu_torch.ops import panelsplit as t_split
 
+torch.set_num_threads(1)  # one thread per process: pytest-xdist runs several beside each other
+
 ORDER = 3
 AWR = 200.0  # heavy: narrow y-windows, so the windowed-knot path is valid
 

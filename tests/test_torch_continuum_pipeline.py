@@ -36,6 +36,8 @@ from ndpp_tpu_torch.host.ace import synth as t_synth
 from ndpp_tpu_torch.interop import config_from_dict, group_structure
 from ndpp_tpu_torch.utils.metrics import RunMetrics
 
+torch.set_num_threads(1)  # one thread per process: pytest-xdist runs several beside each other
+
 ORDER = 3
 CPU = torch.device("cpu")
 CONTINUUM_FIXTURES = ["kalbach", "law61", "law61cm", "law67", "law4nd", "law1", "law5", "nbody"]

@@ -18,6 +18,8 @@ import chip_smoke
 from ndpp_tpu_torch.ops import twobody_inner as inner_mod
 from ndpp_tpu_torch.ops.twobody_inner import twobody_group_moments, twobody_group_moments_ref
 
+torch.set_num_threads(1)  # one thread per process: pytest-xdist runs several beside each other
+
 C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
 
 

@@ -48,6 +48,8 @@ from ndpp_tpu_torch.ops import freegas as t_fg
 from ndpp_tpu_torch.ops import panelsplit as t_split
 from ndpp_tpu_torch.parallel import rows as rows_mod
 
+torch.set_num_threads(1)  # one thread per process: pytest-xdist runs several beside each other
+
 KT = 0.0253  # eV, 293.6 K
 ORDER = 3
 CPU = torch.device("cpu")

@@ -9,6 +9,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from ndpp_tpu import config as j_config
 from ndpp_tpu import groups as j_groups
@@ -22,6 +23,8 @@ from ndpp_tpu_torch.host.ace.parse import read_ace as t_read_ace
 from ndpp_tpu_torch.host.ace import synth as t_synth
 from ndpp_tpu_torch.host.prep import prepare_twobody as t_prepare
 from ndpp_tpu_torch.interop import config_from_dict, group_structure
+
+torch.set_num_threads(1)  # one thread per process: pytest-xdist runs several beside each other
 
 
 @pytest.mark.parametrize("fixture,n_energy", [("h1", 40), ("fe56", 60), ("o16", 40)])

@@ -13,6 +13,8 @@ from ndpp_tpu_torch.ops import twobody_inner as inner_mod
 from ndpp_tpu_torch.ops.segment import segment_group_sum
 from ndpp_tpu_torch.ops.twobody_inner import twobody_group_moments, twobody_group_moments_ref, twobody_inner_ref
 
+torch.set_num_threads(1)  # one thread per process: pytest-xdist runs several beside each other
+
 MODULES = [
     "ndpp_tpu_torch",
     "ndpp_tpu_torch.banding",
@@ -45,10 +47,12 @@ MODULES = [
     "ndpp_tpu_torch.ops.thermal",
     "ndpp_tpu_torch.ops.twobody",
     "ndpp_tpu_torch.ops.twobody_inner",
+    "ndpp_tpu_torch.parallel.mesh",
     "ndpp_tpu_torch.parallel.nuclides",
     "ndpp_tpu_torch.parallel.rows",
     "ndpp_tpu_torch.selfcheck",
     "ndpp_tpu_torch.thermal_driver",
+    "ndpp_tpu_torch.utils.build",
     "ndpp_tpu_torch.utils.watchdog",
 ]
 
@@ -252,14 +256,14 @@ def test_continuum_and_chi_stay_on_the_card(monkeypatch):
     from ndpp_tpu_torch.parallel import rows as rows_mod
 
     seen = []
-    fetch = rows_mod.fetch_rows
+    fetch = rows_mod.Placement.fetch
 
-    def spy(res):
-        host = fetch(res)
+    def spy(place, res):
+        host = fetch(place, res)
         seen.append((res.device.type, res.dtype, host.is_pinned() or res.device.type == "cpu"))
         return host
 
-    monkeypatch.setattr(rows_mod, "fetch_rows", spy)
+    monkeypatch.setattr(rows_mod.Placement, "fetch", spy)
     gs = groups.get("uniform-lethargy-47")
     cfg = RunConfig(freegas_for=["none"])
     out = {}
@@ -299,14 +303,14 @@ def test_thermal_drivers_stay_on_the_card(monkeypatch):
     from ndpp_tpu_torch.parallel import rows as rows_mod
 
     seen = []
-    fetch = rows_mod.fetch_rows
+    fetch = rows_mod.Placement.fetch
 
-    def spy(res):
-        host = fetch(res)
+    def spy(place, res):
+        host = fetch(place, res)
         seen.append((res.device.type, res.dtype, host.is_pinned() or res.device.type == "cpu"))
         return host
 
-    monkeypatch.setattr(rows_mod, "fetch_rows", spy)
+    monkeypatch.setattr(rows_mod.Placement, "fetch", spy)
     cfg = RunConfig(groups="uniform-lethargy-47", legendre_order=3, temperatures=[293.6, 600.0])
     cfg.validate()
     gs = cfg.group_structure()
@@ -346,3 +350,44 @@ def test_selfcheck_at_production_shape_on_the_card():
     assert report["twobody_route"] == "cuda" and report["twobody_kernel_launches"] >= 1
     assert report["twobody_max_rel"] <= 1e-8
     assert report["ok"], report["failed"]
+
+
+@pytest.mark.cuda
+def test_two_shards_on_one_card_each_launch_on_their_stream(tmp_path):
+    """driver.run over two shards on one card (cuda:0 twice: two streams)
+    writes the library of its one-shard run within 1e-13 relative, 1e-16
+    absolute, every family on, and the kernel launches on both streams."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc (run python3 chip_smoke.py on the card)")
+    from ndpp_tpu_torch import driver
+    from ndpp_tpu_torch.config import RunConfig
+    from ndpp_tpu_torch.host.ace import synth
+    from ndpp_tpu_torch.host.ace.thermal import write_thermal_ace
+    from ndpp_tpu_torch.host.ace.write import write_ace
+    from ndpp_tpu_torch.io.library import compare
+    from ndpp_tpu_torch.parallel.rows import Placement
+
+    lines = []
+    for key in ("h1", "o16", "kalbach", "u235"):
+        nuc = synth.ALL_FIXTURES[key](60)
+        lines.append(f"{nuc.name} {nuc.awr:.6f} {write_ace(nuc, tmp_path / f'{key}.ace').name} 0 1 1 0")
+    tab = synth.build_thermal("lwtr")
+    lines.append(f"{tab.name} {tab.awr:.6f} {write_thermal_ace(tab, tmp_path / 'lwtr.ace').name} 0 1 1 0")
+    (tmp_path / "xsdir").write_text("directory\n" + "\n".join(lines) + "\n")
+    place = Placement(["cuda:0", "cuda:0"])
+    paths = {}
+    for tag, device in (("one", "cuda:0"), ("two", place)):
+        cfg = RunConfig(library=str(tmp_path / "xsdir"), groups="uniform-lethargy-47", legendre_order=3,
+                        sab={"1001.80c": ["lwtr.20t"]})
+        cfg.output.path = str(tmp_path / f"{tag}.txt")
+        cfg.output.format = "ascii"
+        cfg.device.e_tile = 64
+        cfg.validate()
+        twobody_group_moments.launches_by_stream.clear()
+        m = driver.run(cfg, device=device)
+        assert m.nuclides_done == 4 and m.nuclides_quarantined == 0
+        paths[tag] = cfg.output.path
+    by_stream = dict(twobody_group_moments.launches_by_stream)
+    assert all(by_stream.get(s.cuda_stream, 0) > 0 for s in place.streams), by_stream
+    report = compare(paths["two"], paths["one"], rtol=1e-13, atol=1e-16)
+    assert report["match"], {k: v for k, v in report["datasets"].items() if not v.get("ok")}

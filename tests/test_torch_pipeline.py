@@ -16,6 +16,7 @@ path is held to its f64 path with atol 1e-12, tests/test_pallas.py).
 
 import numpy as np
 import pytest
+import torch
 
 from ndpp_tpu import config as j_config
 from ndpp_tpu import driver as j_driver
@@ -25,6 +26,8 @@ from ndpp_tpu.io.library import compare, read_ascii
 from ndpp_tpu_torch import cli as t_cli
 from ndpp_tpu_torch import driver as t_driver
 from ndpp_tpu_torch.interop import config_from_dict
+
+torch.set_num_threads(1)  # one thread per process: pytest-xdist runs several beside each other
 
 NUCLIDES = ["1001.80c", "26056.80c", "8016.80c"]
 ATOL = 1e-14

@@ -34,6 +34,8 @@ from ndpp_tpu_torch.ops import freegas as t_fg
 from ndpp_tpu_torch.ops.twobody_inner import twobody_group_moments
 from test_torch_freegas import EPS, _assert_close, _legendre_split_cumulants, _split_kappa, exact_split_reference
 
+torch.set_num_threads(1)  # one thread per process: pytest-xdist runs several beside each other
+
 ROOT = Path(__file__).resolve().parents[1]
 KT = 0.0253
 ORDER = 3

@@ -22,6 +22,8 @@ from ndpp_tpu_torch.host.ace import thermal as t_thermal
 from ndpp_tpu_torch.interop import thermal_table
 from ndpp_tpu_torch.ops import thermal as t_ops
 
+torch.set_num_threads(1)  # one thread per process: pytest-xdist runs several beside each other
+
 TABLES = ["lwtr", "grph"]
 ORDER = 3
 

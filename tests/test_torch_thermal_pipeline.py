@@ -12,6 +12,7 @@ reference's comparator holds them to rtol 1e-8, atol 1e-14.
 
 import numpy as np
 import pytest
+import torch
 
 from ndpp_tpu import config as j_config
 from ndpp_tpu import driver as j_driver
@@ -24,6 +25,8 @@ from ndpp_tpu_torch import driver as t_driver
 from ndpp_tpu_torch.host.ace import synth as t_synth
 from ndpp_tpu_torch.host.ace import thermal as t_thermal
 from ndpp_tpu_torch.interop import config_from_dict
+
+torch.set_num_threads(1)  # one thread per process: pytest-xdist runs several beside each other
 
 NUCLIDES = ["1001.80c", "8016.80c", "26056.80c"]
 SAB = {"1001.80c": ["lwtr.20t"], "8016.80c": ["grph.20t"]}

@@ -24,6 +24,8 @@ from ndpp_tpu_torch.interop import twobody_inputs
 from ndpp_tpu_torch.ops import segment as t_segment
 from ndpp_tpu_torch.ops import twobody as t_twobody
 
+torch.set_num_threads(1)  # one thread per process: pytest-xdist runs several beside each other
+
 RTOL, ATOL = 1e-12, 1e-14
 N_GROUPS = 24
 BAND = 8

@@ -19,6 +19,7 @@ from pathlib import Path
 
 import h5py
 import pytest
+import torch
 
 from ndpp_tpu import config as j_config
 from ndpp_tpu import driver as j_driver
@@ -31,6 +32,8 @@ from ndpp_tpu_torch.interop import config_from_dict
 from ndpp_tpu_torch.io.library import compare, merge_libraries, write_ascii_from_hdf5
 from ndpp_tpu_torch.parallel import nuclides as nuclides_mod
 from ndpp_tpu_torch.utils.errors import ConfigError
+
+torch.set_num_threads(1)  # one thread per process: pytest-xdist runs several beside each other
 
 ROOT = Path(__file__).resolve().parents[1]
 NUCLIDES = ["1001.80c", "8016.80c"]
