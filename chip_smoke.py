@@ -7,9 +7,10 @@ never jax or the reference package, and proves in one process that:
 
   1. environment: a CUDA card is present (else it exits non-zero and prints
      no result); prints the card's name and power limit, torch/CUDA/nvcc;
-  2. build: the two-body kernel (ndpp_tpu_torch/csrc/twobody_inner.cu)
-     builds with nvcc for sm_90a from the checkout's sources; ptxas's
-     registers and spills per kernel instance are printed;
+  2. build: the three hand-written kernels (ndpp_tpu_torch/csrc/
+     twobody_inner.cu, freegas_sab.cu, cm_pointwise.cu) build with nvcc for
+     sm_90a from the checkout's sources, one nvcc each, started together;
+     ptxas's registers, stack and spills per kernel instance are printed;
   3. kernel vs plain: at the bench shape (2048 rows, P5, 361 groups, 16 GL
      points; panels from the port's prologue on fe56 rows) the fused kernel
      agrees with its plain torch version (inner stage, then the group
@@ -20,6 +21,20 @@ never jax or the reference package, and proves in one process that:
      (median of 2 x 10 replays), and the kernel also by CUDA events around
      one eager call (median of 20), which puts the launch's host overhead on
      the clock;
+  3b. free-gas kernel vs plain ([fgk] lines): one freegas_moments_sab
+     call at the thermal deck's shape (256 rows of h1's grid below 400 kT at
+     293.6 K, P5, the driver's covering window with its catch group) on the
+     card: the density kernel (sab_density) against its plain torch version
+     on the same y-panels, and the op's (T, L+1, G) result through the
+     kernel against the same op through the plain density, each within
+     |k - p| <= 1e-12 max_row |p|; kernel and plain version timed in turns
+     by CUDA-graph replays, beside their bound;
+  3c. CM-continuum kernel vs plain ([cmk] lines): cm_inner_moments on one
+     tile each of the kalbach, law61cm (tabular angles, cross_edges) and
+     nbody preparations, 256 rows each as the continuum driver prepares
+     them (the deck's nq_w/nq_y, "lagrange" split, dense table), against
+     cm_inner_moments_ref within the same bound, with the tile's shared
+     memory path; timed and bounded the same way;
   4. the two-body deck: ``driver.run(cfg, device="cuda")`` on a P5 /
      uniform-lethargy-361 deck over h1, fe56, o16 and two stress nuclides
      (two-body only; free-gas off; until the continuum deck joined, this
@@ -68,6 +83,11 @@ never jax or the reference package, and proves in one process that:
 Worker runs (``run --workers``) and ``merge`` are not driven here: their
 shards are HDF5 and the card's machine has no h5py; the CPU tests hold them.
 
+Every deck counts each kernel's launches from 0: the two-body kernel must
+launch on every deck, the free-gas kernel on the thermal, shards, scale and
+selfcheck runs, the continuum kernel on the continuum, shards, scale and
+selfcheck runs.
+
 The line before the last is a JSON object describing each kernel of the
 path; the last line is {"ok": true, "device": {...}}. Any failed phase
 raises, which exits non-zero before either line is printed.
@@ -99,6 +119,13 @@ THERMAL_SAB = {"1001.80c": ["lwtr.20t"], "8016.80c": ["grph.20t"]}
 THERMAL_TEMPERATURES = [293.6, 600.0]
 THERMAL_RUN = {"freegas_for": [], "sab": THERMAL_SAB, "temperatures": THERMAL_TEMPERATURES}  # default free-gas
 BAND = 32  # per-row window width of the banded variant
+FREEGAS_ROWS, FREEGAS_TEMP = 256, 293.6  # the thermal deck's free-gas tile: h1's rows at 293.6 K
+CM_ROWS = 256  # rows of each CM-continuum tile (the continuum driver's tile)
+CM_FIXTURES = {"kalbach": ("kalbach", "tabular"), "law61cm": ("tabular", "tabular"), "nbody": ("isotropic", "nbody")}
+HAND_RTOL = 1e-12  # the new kernels vs plain: |k - p| <= HAND_RTOL * max over the row of |p|
+# Which kernel each deck must launch (every deck launches the two-body kernel)
+NEEDS = {"sab_density": ("thermal", "shards", "scale", "selfcheck"),
+         "cm_inner_moments": ("continuum", "shards", "scale", "selfcheck")}
 RTOL, ATOL = 1e-12, 1e-14  # kernel vs plain, elementwise
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP64_FLOPS_PER_S = 34e12  # H100 SXM FP64 outside the tensor cores
@@ -125,35 +152,52 @@ def environment():
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     import ndpp_tpu_torch
-    from ndpp_tpu_torch.ops import twobody_inner as inner_mod
+    from ndpp_tpu_torch.utils.build import nvcc
 
     pkg = Path(ndpp_tpu_torch.__file__).resolve().parent
     if pkg.parent != ROOT:
         raise SystemExit(f"chip_smoke: ndpp_tpu_torch imported from {pkg}, not from this checkout")
-    nvcc = subprocess.run([inner_mod._nvcc(), "--version"], capture_output=True, text=True, timeout=60, check=True)
+    version = subprocess.run([nvcc(), "--version"], capture_output=True, text=True, timeout=60, check=True)
     print(smi, flush=True)  # name, power limit (nvidia-smi csv)
     phase("env", f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    phase("env", f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}")
+    phase("env", f"nvcc: {version.stdout.strip().splitlines()[-1]}")
     phase("env", f"device 0: {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()})")
     return smi
 
 
-def build():
+def build() -> dict:
+    """Build the three kernels, one nvcc each, all started together; load
+    them. Returns each kernel's build seconds and the wall of the three."""
     import re
+    from concurrent.futures import ThreadPoolExecutor
 
+    from ndpp_tpu_torch.ops import continuum as cont_ops
+    from ndpp_tpu_torch.ops import freegas as fg_ops
     from ndpp_tpu_torch.ops import twobody_inner as inner_mod
+    from ndpp_tpu_torch.utils.build import build_cuda, ptxas_report
 
-    path, seconds = inner_mod.build()
+    t0 = time.perf_counter()
+    sources = {"twobody_group_moments": (inner_mod._SRC, inner_mod._NVCC_FLAGS),
+               "sab_density": (fg_ops._SRC,), "cm_inner_moments": (cont_ops._SRC,)}
+    with ThreadPoolExecutor(len(sources)) as ex:
+        futures = {name: ex.submit(build_cuda, *args) for name, args in sources.items()}
+        built = {name: f.result() for name, f in futures.items()}
+    wall = time.perf_counter() - t0
     inner_mod.library()
-    phase("build", f"{path.relative_to(ROOT)} built in {seconds:.2f} s")
-    name = "?"
-    for line in inner_mod.ptxas_report(path).read_text().splitlines():
-        entry = re.search(r"Compiling entry function '.*?twobody_group_kernelILi(\d+)ELi(\d+)E", line)
-        if entry:
-            name = f"L={entry.group(1)} nq={entry.group(2) if entry.group(2) != '0' else 'any'}"
-        elif "spill" in line or "Used" in line:
-            phase("build", f"ptxas {name}: {line.strip()}")
-    return seconds
+    fg_ops._sab_library()
+    cont_ops._cm_library()
+    for kernel, (path, seconds) in built.items():
+        phase("build", f"{kernel}: {path.relative_to(ROOT)} built in {seconds:.2f} s")
+        name = "?"
+        for line in ptxas_report(path).read_text().splitlines():
+            entry = re.search(r"Compiling entry function .*?(twobody_group_kernel|freegas_sab_kernel|cm_inner_kernel)"
+                              r"I(.*?)EEv", line)
+            if entry:  # template arguments: two-body <L, nq>, free-gas <L>, continuum <angular, nbody, window>
+                name = f"{entry.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', entry.group(2)))}>"
+            elif "spill" in line or "Used" in line:
+                phase("build", f"ptxas {name}: {line.strip()}")
+    phase("build", f"three nvcc processes in parallel: wall {wall:.2f} s")
+    return {"wall_s": wall, **{name: seconds for name, (_, seconds) in built.items()}}
 
 
 def fe56_preps():
@@ -348,6 +392,325 @@ def kernel_vs_plain(smi: str):
     }
 
 
+def row_rel_err(k, p) -> float:
+    """max |k - p| / max over the row of |p|, over every row (rows of p that
+    are all 0 count in absolute terms)."""
+    t = p.shape[0]
+    scale = p.abs().reshape(t, -1).amax(dim=1).clamp_min(1e-300).reshape((t,) + (1,) * (p.dim() - 1))
+    return float(((k - p).abs() / scale).max())
+
+
+def freegas_inputs(device):
+    """The thermal deck's free-gas tile: FREEGAS_ROWS of h1's moment-grid
+    rows below the free-gas cutoff at FREEGAS_TEMP (log-evenly sampled where
+    there are more), and the driver's covering window: the groups reachable
+    from thermal energies in a power-of-two bucket, behind the catch group
+    [0, bounds[0]). Returns (e, awr, kt, window)."""
+    import numpy as np
+    import torch
+
+    from ndpp_tpu_torch import groups
+    from ndpp_tpu_torch.config import BOLTZMANN_EV_PER_K, RunConfig
+    from ndpp_tpu_torch.host import unionize
+    from ndpp_tpu_torch.host.ace import synth
+
+    nuc = synth.build("h1")
+    kt = BOLTZMANN_EV_PER_K * FREEGAS_TEMP
+    cutoff = RunConfig().thermal_cutoff_kt * kt
+    e_grid = unionize.moment_grid(nuc.energy)
+    rows = e_grid[e_grid < cutoff]
+    e = rows[np.round(np.linspace(0, rows.size - 1, FREEGAS_ROWS)).astype(int)]
+    gs = groups.get(f"uniform-lethargy-{KERNEL_SHAPE['groups']}")
+    gamma, beta, vmax = nuc.awr / (nuc.awr + 1.0), np.sqrt(nuc.awr / kt), np.sqrt(cutoff)
+    e_reach = 1.5 * (vmax + 2.0 * gamma * (vmax + 8.0 / beta)) ** 2  # as freegas_driver.apply_freegas
+    w = min(unionize.bucket_pow2(int(np.clip(np.searchsorted(gs.bounds, e_reach), 1, gs.ng))), gs.ng)
+    window = np.concatenate([[0.0], gs.bounds[: w + 1]])
+    return torch.as_tensor(e, device=device), nuc.awr, kt, torch.as_tensor(window, device=device)
+
+
+def freegas_bound(pm, ph, v, awr, kt, order: int) -> tuple[float, str, dict]:
+    """The least time the card could take for the free-gas density on these
+    panels, the larger of two: bytes over the HBM rate, or f64 operations
+    over the FP64 rate. Bytes: pmid and phalf (T, NP) and v, awr, kt (T,)
+    read once, the (T, NP, NQ_G, L+1) result written once. Operations count
+    the (y, u) GL nodes of the live u-panels (width > 0; the plain version's
+    own edges on these inputs): per node 20 (the u node and its weight, the
+    root and its square root, t, the floored division, the exponent and its
+    exp, the weight's two products, mu and its clip, the P_0 sum; an FMA is 2,
+    a min, max, square root, exp or division 1), 2 for P_1 and 6 for each
+    Bonnet step after it. A y-node's edges, merge and scaling are left out,
+    which can only lower the bound."""
+    import torch
+
+    from ndpp_tpu_torch.ops import freegas as fg
+    from ndpp_tpu_torch.ops.legendre import gl_nodes_weights
+
+    t, npan = pm.shape
+    xg = torch.as_tensor(gl_nodes_weights(fg.NQ_G)[0], device=pm.device)
+    live = 0
+    for c0 in range(0, npan, 4):  # a few panels at a time: (T, 4 x NQ_G, 21) edges
+        y = (pm[:, c0 : c0 + 4, None] + ph[:, c0 : c0 + 4, None] * xg).reshape(t, -1)
+        edges = fg.sab_u_edges(y, v, awr, kt)[0]
+        live += int((edges[..., 1:] > edges[..., :-1]).sum())
+    nodes = live * fg.NQ_U
+    per_node = 20 + (2 if order >= 1 else 0) + 6 * max(order - 1, 0)
+    nbytes = 8 * (2 * t * npan + 3 * t + t * npan * fg.NQ_G * (order + 1))
+    flops = nodes * per_node
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP64_FLOPS_PER_S
+    info = {"bytes": nbytes, "flops": flops, "live_u_panels": live, "u_panels": t * npan * fg.NQ_G * fg.U_PANELS}
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", info
+
+
+def freegas_kernel_phase(smi: str) -> dict:
+    """The free-gas density kernel against its plain version at the thermal
+    deck's shape, and the op through each; timings and bound."""
+    import torch
+
+    from ndpp_tpu_torch.ops import freegas as fg
+
+    dev = torch.device("cuda", 0)
+    order = KERNEL_SHAPE["order"]
+    e, awr, kt, window = freegas_inputs(dev)
+    chunk = fg.chunk_for(e.shape[0])
+    v = torch.sqrt(e).contiguous()
+    a_r, k_r = fg._per_row(awr, e).contiguous(), fg._per_row(kt, e).contiguous()
+    panels = {}
+
+    def plain_op():
+        def gvals(pm, ph):
+            panels.update(pm=pm, ph=ph)
+            return fg.sab_density_ref(pm, ph, v, a_r, k_r, order, chunk)
+
+        return fg._outgoing_panelsplit(e, v, a_r, k_r, window, order, fg.NQ_G, fg.NFILL_Y, gvals)
+
+    ref_op = plain_op()
+    pm, ph = panels["pm"], panels["ph"]
+    reset_counts()
+    out_op = fg.freegas_moments_sab(e, awr, kt, window, order, chunk=chunk)
+    dens = fg.sab_density(pm, ph, v, a_r, k_r, order)
+    torch.cuda.synchronize()
+    launches = fg.sab_density.launches
+    ref = fg.sab_density_ref(pm, ph, v, a_r, k_r, order, chunk)
+    err_d, err_op = row_rel_err(dens, ref), row_rel_err(out_op, ref_op)
+    phase("fgk", f"sab_density T,NP={tuple(pm.shape)} -> {tuple(dens.shape)} L={order}, one launch of grid "
+          f"({pm.shape[0]}, {-(-pm.shape[1] * fg.NQ_G // 128)}) x 128 threads: max |k-p| / max_row|p| = {err_d:.3e}; "
+          f"freegas_moments_sab -> {tuple(out_op.shape)} through the kernel vs through the plain density: {err_op:.3e} "
+          f"(limit {HAND_RTOL:g}); launches {launches}")
+    if launches != 2 or not (err_d <= HAND_RTOL and err_op <= HAND_RTOL) or not bool(torch.isfinite(dens).all()):
+        raise RuntimeError(f"the free-gas kernel disagrees with its plain version ({err_d:.3e}, {err_op:.3e}) "
+                           f"or did not launch ({launches})")
+    ms = time_turns({
+        "kernel": lambda: fg.sab_density(pm, ph, v, a_r, k_r, order),
+        "plain": lambda: fg.sab_density_ref(pm, ph, v, a_r, k_r, order, chunk),
+    }, n=5, reps=3)
+    bound_ms, bound_by, info = freegas_bound(pm, ph, v, a_r, k_r, order)
+    phase("fgk", f"device time per call, median of 2 x 3 graph replays of 5 calls, in turns: kernel {ms['kernel']:.5f} ms, "
+          f"plain torch {ms['plain']:.5f} ms (chunk {chunk} of {fg.Y_PANELS} y-panels); bound {bound_ms:.5f} ms "
+          f"({bound_by}: {json.dumps(info)}) on {smi}")
+    return {"max_abs_err": float((dens - ref).abs().max()), "max_rel_row_err": max(err_d, err_op), "ms": ms["kernel"],
+            "plain_ms": ms["plain"], "bound_ms": bound_ms, "bound_by": bound_by, "shape": list(dens.shape)}
+
+
+def cm_tiles(device) -> dict:
+    """cm_inner_moments' operands for one CM_ROWS-row tile of each
+    preparation in CM_FIXTURES, as the continuum driver prepares a tile:
+    the reaction's rows from one below its threshold (cycled up to CM_ROWS),
+    knot tables padded to their power-of-two bucket, the driver's ksel rung,
+    its quadrature (nq_w/nq_y 12/8 with cross_edges for tabular angles, else
+    10/7), the "lagrange" split, P5 on the dense 361-group table, and the
+    plain path's chunk for a tile of this size. They are captured from
+    cm_moments_pointwise's call of the wrapper, which the capture then stops
+    (no launch). Returns {fixture: (args, chunk)}."""
+    import numpy as np
+    import torch
+
+    from ndpp_tpu_torch import groups
+    from ndpp_tpu_torch.continuum_driver import _window_knot_bound, quantize_ksel
+    from ndpp_tpu_torch.host import unionize
+    from ndpp_tpu_torch.host.ace import synth
+    from ndpp_tpu_torch.host.prep_continuum import prepare_continuum
+    from ndpp_tpu_torch.ops import continuum as cont_ops
+
+    order = KERNEL_SHAPE["order"]
+    gs = groups.get(f"uniform-lethargy-{KERNEL_SHAPE['groups']}")
+    bounds = torch.as_tensor(gs.bounds, device=device)
+    tiles = {}
+    real = cont_ops.cm_inner_moments
+
+    class Captured(Exception):
+        pass
+
+    def put(a, k=None):
+        return None if a is None else torch.as_tensor(np.ascontiguousarray(a if k is None else unionize.pad_to(a, k, axis=1)), device=device)
+
+    for fixture, (angular, energy) in CM_FIXTURES.items():
+        nuc = synth.build(fixture)
+        e_grid = unionize.moment_grid(nuc.energy)
+        rxn = next(r for r in nuc.scattering_reactions(include_fission=False) if r.energy_dists)
+        sig = np.interp(e_grid, nuc.energy, nuc.sigma_on_grid(rxn))
+        rows = e_grid[max(int(np.nonzero(sig > 0)[0][0]) - 1, 0):]
+        rows = rows[np.arange(CM_ROWS) % rows.size]
+        prep = prepare_continuum(nuc, rxn, rxn.energy_dists[0], rows, order)
+        tab = angular == "tabular"
+        nq_w, nq_y = (12, 8) if tab else (10, 7)
+        if energy == "nbody":
+            k16, ksel = cont_ops.NBODY_KNOTS, 0
+        else:
+            k16 = unionize.bucket_pow2(prep.e_knots.shape[1])
+            ksel = quantize_ksel(_window_knot_bound(prep.e, nuc.awr, prep.e_knots), k16)
+        kmu = prep.mu_knots.size if tab else 0
+        npan = cont_ops.outer_panel_count(k16, gs.ng, angular, kmu, "lagrange", tab)
+        chunk = cont_ops.chunk_for(CM_ROWS, nq_w, nq_y, cont_ops.inner_panel_count(k16, ksel, angular, kmu), npan)
+
+        def capture(*args, chunk=None, key=fixture):
+            tiles[key] = (args, chunk)
+            raise Captured
+
+        cont_ops.cm_inner_moments = capture
+        try:
+            kal, nb = angular == "kalbach", energy == "nbody"
+            cont_ops.cm_moments_pointwise(
+                put(prep.e), None if nb else put(prep.e_knots, k16), None if nb else put(prep.pdf, k16),
+                put(prep.r_rows, k16) if kal else None, put(prep.a_rows, k16) if kal else None,
+                put(prep.mu_knots) if tab else None, put(prep.mu_pdf, k16) if tab else None,
+                put(prep.nbody_emax) if nb else None, float(prep.nbody_expo or 0.0), bounds, nuc.awr, order,
+                nq_w, nq_y, angular, energy, True, chunk, ksel, "lagrange", tab,
+            )
+        except Captured:
+            pass
+        finally:
+            cont_ops.cm_inner_moments = real
+    return tiles
+
+
+def cm_bound(args) -> tuple[float, str, dict]:
+    """The least time the card could take for the CM inner integral on these
+    operands, the larger of two: bytes over the HBM rate, or f64 operations
+    over the FP64 rate. Bytes: the operands the variant reads (w, s, yk, the
+    channel payload; e_knots, mu_knots and mu_pdf for tabular angles;
+    nbody_emax and c_norm for N-body energies) read once, the (T, NW, L+1)
+    result written once. Operations count the GL nodes of the live inner
+    panels (width > 0, inside a non-empty window; the plain version's own
+    edges on these operands): per node 8 (y, its weight, x, mu_lab and its
+    clip), p_E (2 tabular, 5 N-body), p_mu (Kalbach 28: mu_cm, r, a, exp,
+    expm1 and the two-exp form; tabular 24: mu_cm and the bilinear table;
+    isotropic 0), 3 for the weight and the P_0 sum, 2 for P_1 and 6 for each
+    Bonnet step after it (an FMA is 2, a min, max, square root, exp, pow or
+    division 1). Panel set-up, lookups, making and merging the roots are left
+    out, which can only lower the bound."""
+    import torch
+
+    from ndpp_tpu_torch.ops import continuum as cont_ops
+
+    w, s, yk, e_knots, payload, mu_knots, mu_pdf, emax, c_norm, _, order, nq_y, angular, energy, ksel = args
+    t, nw = w.shape
+    ke = yk.shape[1]
+    nsel = ksel if 0 < ksel < ke else ke
+    live = 0
+    for c0 in range(0, nw, 1024):
+        edges, ok_w, _, _ = cont_ops.cm_inner_edges(w[:, c0 : c0 + 1024], s, yk, mu_knots, nsel)
+        live += int(((edges[..., 1:] > edges[..., :-1]) & ok_w[..., None]).sum())
+    read = [w, s, yk, payload, emax, c_norm] + ([e_knots, mu_knots, mu_pdf] if angular == "tabular" else [])
+    nbytes = sum(x.numel() * 8 for x in read if x is not None) + t * nw * (order + 1) * 8
+    per_node = (8 + (5 if energy == "nbody" else 2) + {"kalbach": 28, "tabular": 24, "isotropic": 0}[angular] + 3
+                + (2 if order >= 1 else 0) + 6 * max(order - 1, 0))
+    flops = live * nq_y * per_node
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP64_FLOPS_PER_S
+    info = {"bytes": nbytes, "flops": flops, "live_inner_panels": live, "outer_nodes": t * nw,
+            "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3}
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", info
+
+
+def cm_check_tile(device, t: int, nw: int, ke: int, kmu: int, seed: int):
+    """Synthetic tabular-energy, tabular-angle operands of cm_inner_moments
+    beyond what the fixtures reach: a light nucleus (A = 1, so s = sqrt(E)/2
+    and the outer nodes w fall on both sides of s: the crossing roots' runs
+    with and without a turning point), KMU mu knots with 0 among them, KE
+    knots. Returns the operand tuple."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    ek = np.sort(rng.uniform(0.05, 0.9, size=(t, ke)), axis=1)  # E'_cm knots, E = 1
+    pdf = rng.uniform(0.2, 1.0, size=(t, ke))
+    slope = np.diff(pdf, axis=1) / np.diff(ek, axis=1)
+    payload = np.stack([pdf[:, :-1] - slope * ek[:, :-1], slope], axis=-1)  # p_E = a + b x per knot panel
+    muk = np.unique(np.concatenate([[-1.0, 0.0, 1.0], rng.uniform(-1.0, 1.0, size=kmu - 3)]))
+    assert muk.size == kmu
+    s = np.full(t, 0.5)
+    w = np.sort(rng.uniform(0.01, np.sqrt(0.9) + 0.5, size=(t, nw)), axis=1)
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=device)  # noqa: E731
+    return (put(w), put(s), put(np.sqrt(ek)), put(ek), put(payload), put(muk),
+            put(rng.uniform(0.2, 1.0, size=(t, ke, kmu))), None, None, 0.0, KERNEL_SHAPE["order"], 8,
+            "tabular", "tabular", 0)
+
+
+def cm_kernel_phase(smi: str) -> dict:
+    """The CM inner kernel against its plain version on one captured tile of
+    each CM preparation, timings and bound summed over the three tiles; and,
+    untimed, on two synthetic tiles beyond the fixtures (cm_check_tile)."""
+    import torch
+
+    from ndpp_tpu_torch.ops import continuum as cont_ops
+
+    dev = torch.device("cuda", 0)
+
+    def check(name, args, chunk, want_path=None):
+        """One launch against the plain version; returns (kernel result, plain result, error, path)."""
+        reset_counts()
+        got = cont_ops.cm_inner_moments(*args)
+        torch.cuda.synchronize()
+        launches = cont_ops.cm_inner_moments.launches
+        where = next(iter(cont_ops.cm_inner_moments.row_tables))
+        ref = cont_ops.cm_inner_moments_ref(*args, chunk=chunk)
+        err = row_rel_err(got, ref)
+        w, yk, mu_knots = args[0], args[2], args[5]
+        kmu = 0 if mu_knots is None else mu_knots.shape[0]
+        phase("cmk", f"cm_inner_moments {name} [{args[12]}, {args[13]}, ksel {args[14]}] T,NW={tuple(w.shape)} "
+              f"KE={yk.shape[1]} KMU={kmu} L={args[10]} nq_y={args[11]}: one launch of grid ({w.shape[0]}, "
+              f"{-(-w.shape[1] // 128)}) x 128 threads, row tables read from {where} (the launch's report); "
+              f"max |k-p| / max_row|p| = {err:.3e} (limit {HAND_RTOL:g}); launches {launches}")
+        if launches != 1 or err > HAND_RTOL or not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"{name}: the CM kernel disagrees with its plain version ({err:.3e}) "
+                               f"or did not launch ({launches})")
+        if want_path is not None and where != want_path:
+            raise RuntimeError(f"{name}: the row tables were read from {where}, not {want_path}")
+        return got, ref, err, where
+
+    # beyond the fixtures, checked and not timed: 200 mu knots, with outer
+    # nodes on both sides of s; row tables over 227 KB (KE 512 x KMU 64), read through L2
+    check("kmu200", cm_check_tile(dev, 64, 512, 32, 200, seed=7), 64, "shared")
+    check("l2_tables", cm_check_tile(dev, 16, 256, 512, 64, seed=8), 64, "l2")
+
+    tiles = cm_tiles(dev)
+    total = {"max_abs_err": 0.0, "max_rel_row_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+             "tiles": {}}
+    bytes_ms = ops_ms = 0.0
+    for name, (args, chunk) in tiles.items():
+        got, ref, err, where = check(name, args, chunk)
+        w = args[0]
+        ms = time_turns({
+            "kernel": lambda a=args: cont_ops.cm_inner_moments(*a),
+            "plain": lambda a=args, c=chunk: cont_ops.cm_inner_moments_ref(*a, chunk=c),
+        }, n=5, reps=3)
+        bound_ms, bound_by, info = cm_bound(args)
+        phase("cmk", f"{name}: device time per call, median of 2 x 3 graph replays of 5 calls, in turns: kernel "
+              f"{ms['kernel']:.5f} ms, plain torch {ms['plain']:.5f} ms (chunk {chunk} outer nodes); bound "
+              f"{bound_ms:.5f} ms ({bound_by}: {json.dumps(info)}) on {smi}")
+        total["max_abs_err"] = max(total["max_abs_err"], float((got - ref).abs().max()))
+        total["max_rel_row_err"] = max(total["max_rel_row_err"], err)
+        total["ms"] += ms["kernel"]
+        total["plain_ms"] += ms["plain"]
+        total["bound_ms"] += bound_ms
+        total["tiles"][name] = {"shape": list(w.shape), "ms": ms["kernel"], "plain_ms": ms["plain"],
+                                "bound_ms": bound_ms, "bound_by": bound_by, "row_tables": where}
+        bytes_ms += info["bytes_ms"]
+        ops_ms += info["ops_ms"]
+    # what bounds the three tiles together: their byte times summed against their operation times summed
+    total["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    return total
+
+
 def write_fixtures(lib: Path, keys=TWOBODY_FIXTURES, stress=STRESS, thermal=()) -> list[str]:
     """ACE files of the fixtures `keys`, the stress nuclides and the thermal
     tables `thermal` under `lib`, with their xsdir; returns the nuclide names."""
@@ -387,33 +750,57 @@ def deck(lib: Path, names: list[str], out: Path, **run):
     return cfg
 
 
+def kernel_wrappers() -> dict:
+    """The wrapper of each hand-written kernel, by the name the kernels line
+    gives it; each counts its own launches (`launches`, `launches_by_stream`)."""
+    from ndpp_tpu_torch.ops.continuum import cm_inner_moments
+    from ndpp_tpu_torch.ops.freegas import sab_density
+    from ndpp_tpu_torch.ops.twobody_inner import twobody_group_moments
+
+    return {"twobody_group_moments": twobody_group_moments, "sab_density": sab_density,
+            "cm_inner_moments": cm_inner_moments}
+
+
+def reset_counts() -> None:
+    """Every kernel's launch counts to 0 (launches of the compare phases and
+    of other decks do not count)."""
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+        fn.launches_by_stream.clear()
+    wrappers["cm_inner_moments"].row_tables.clear()
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
 def run_on_card(tag: str, cfg, n_nuclides: int, device="cuda"):
-    """driver.run on the card (`device`: what driver.run takes) with the
+    """driver.run on the card (`device`: what driver.run takes) with every
     kernel's count set to 0 just before and read just after; raises on a
-    quarantine or on a run that never launched the kernel. Returns (metrics,
-    launches, wall seconds)."""
+    quarantine or on a run that never launched the two-body kernel. Returns
+    (metrics, launches by kernel, wall seconds)."""
     import torch
 
     from ndpp_tpu_torch import driver
-    from ndpp_tpu_torch.ops.twobody_inner import twobody_group_moments
 
-    twobody_group_moments.launches = 0  # launches of the compare phase and of other decks do not count
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     metrics = driver.run(cfg, device=device)
     wall = time.perf_counter() - t0
-    launches = twobody_group_moments.launches
+    launches = read_counts()
     phase(
         tag,
         f"cuda: wall {wall:.3f} s, {metrics.moments_computed} moments, "
         f"{metrics.moments_computed / wall:.4e} moments/s, done {metrics.nuclides_done}, "
-        f"quarantined {metrics.nuclides_quarantined}, kernel launches {launches}, "
+        f"quarantined {metrics.nuclides_quarantined}, kernel launches {json.dumps(launches)}, "
         f"max_memory_allocated {metrics.device_mem_highwater_bytes} B",
     )
     phase(tag, "cuda phase seconds: " + json.dumps({k: round(v, 4) for k, v in metrics.phase_seconds.items()}))
     if metrics.nuclides_quarantined or metrics.nuclides_done != n_nuclides:
         raise RuntimeError(f"{metrics.nuclides_quarantined} nuclide(s) quarantined on the card")
-    if launches <= 0:
+    if launches["twobody_group_moments"] <= 0:
         raise RuntimeError("the run never launched the two-body kernel")
     return metrics, launches, wall
 
@@ -521,9 +908,9 @@ def cli_phase(library: Path, names: list[str], groups: str) -> None:
     phase("cli", f"groups: exit 0 in {wall:.2f} s, {len(out.splitlines())} structures listed")
 
 
-def selfcheck_phase() -> int:
+def selfcheck_phase() -> dict:
     """The port's accuracy gate at the production shape, as a user runs it;
-    returns the two-body kernel's launches in its run."""
+    returns each kernel's launches in its run."""
     out, wall = port_cli("selfcheck")
     report = json.loads(out.strip().splitlines()[-1])
     phase(
@@ -539,14 +926,16 @@ def selfcheck_phase() -> int:
         phase("selfcheck", f"{name}: ok={r['ok']} max_abs {r['max_abs']:.3e} "
               f"max_rel_significant {r['max_rel_significant']:.3e}{extra} in {r['seconds']:.3f} s, "
               f"peak device memory {r['peak_device_bytes']} B")
-    phase("selfcheck", f"exit 0, ok={report['ok']}, process wall {wall:.2f} s")
+    launches = {"twobody_group_moments": report["twobody_kernel_launches"],
+                "sab_density": report["sab_density_launches"], "cm_inner_moments": report["cm_inner_launches"]}
+    phase("selfcheck", f"exit 0, ok={report['ok']}, process wall {wall:.2f} s, kernel launches {json.dumps(launches)}")
     if not (report["ok"] and report["twobody_route"] == "cuda" and report["twobody_kernel_launches"] >= 1
             and report["twobody_max_rel"] <= 1e-8):
         raise RuntimeError(f"selfcheck failed: {report['failed']}")
-    return report["twobody_kernel_launches"]
+    return launches
 
 
-def twobody_deck(work: Path) -> int:
+def twobody_deck(work: Path) -> dict:
     names = write_fixtures(work / "lib")
     cfg = deck(work / "lib", names, work / "cuda.txt")
     phase("e2e", f"{len(names)} nuclides (h1, fe56, o16, stress {STRESS}), P{cfg.legendre_order}, {cfg.groups}, "
@@ -558,21 +947,23 @@ def twobody_deck(work: Path) -> int:
     return launches
 
 
-def continuum_deck(work: Path) -> int:
+def continuum_deck(work: Path) -> dict:
     lib = work / "contlib"
     names = write_fixtures(lib, CONTINUUM_FIXTURES, ())
     cfg = deck(lib, names, work / "cont_cuda.txt")
     phase("cont", f"{len(names)} nuclides ({', '.join(CONTINUUM_FIXTURES)}), P{cfg.legendre_order}, {cfg.groups}, "
           f"e_tile {cfg.device.e_tile}, quad_points {cfg.device.quad_points}")
     metrics, launches, _ = run_on_card("cont", cfg, len(names))
-    phase("cont", "chunk (outer panels at a time) -> cm_moments_pointwise tiles: "
-          + json.dumps({str(k): v for k, v in sorted(metrics.continuum_chunks.items())}))
+    phase("cont", "chunk of the plain path (outer panels at a time) -> cm_moments_pointwise tiles: "
+          + json.dumps({str(k): v for k, v in sorted(metrics.continuum_chunks.items())})
+          + "; cm_inner_moments launches by where the row tables were read: "
+          + json.dumps(dict(kernel_wrappers()["cm_inner_moments"].row_tables)))
     check_library("cont", cfg.output.path, lib, names)
     compare_with_cpu("cont", cfg, deck(lib, names, work / "cont_cpu.txt"))
     return launches
 
 
-def thermal_deck(work: Path) -> int:
+def thermal_deck(work: Path) -> dict:
     lib = work / "thermlib"
     names = write_fixtures(lib, THERMAL_FIXTURES, (), THERMAL_TABLES)
     cfg = deck(lib, names, work / "therm_cuda.txt", **THERMAL_RUN)
@@ -595,12 +986,11 @@ def shard_devices() -> tuple[list[str], str]:
     return ["cuda:0", "cuda:0"], "one card, two streams"
 
 
-def shards_phase(work: Path) -> int:
+def shards_phase(work: Path) -> dict:
     """The mixed deck (every family) through driver.run on one shard and on
-    two; the libraries agree at SHARD_RTOL / SHARD_ATOL and the kernel runs
-    on both shards. Returns the launches of both runs."""
+    two; the libraries agree at SHARD_RTOL / SHARD_ATOL and the two-body
+    kernel runs on both shards. Returns each kernel's launches of both runs."""
     from ndpp_tpu_torch.io.library import compare
-    from ndpp_tpu_torch.ops.twobody_inner import twobody_group_moments
     from ndpp_tpu_torch.parallel.rows import Placement
 
     lib = work / "shardlib"
@@ -610,18 +1000,17 @@ def shards_phase(work: Path) -> int:
     phase("shards", f"{len(names)} nuclides ({', '.join(SHARD_FIXTURES)}) at {SHARD_RUN['temperatures']} K, free-gas "
           f"on, sab {json.dumps(SHARD_RUN['sab'])}, P{KERNEL_SHAPE['order']}, {KERNEL_SHAPE['groups']} groups; "
           f"two shards on {where}: {devices}")
-    paths, total = {}, 0
+    paths, total = {}, {}
     for tag, device in (("one shard", "cuda:0"), ("two shards", place)):
         cfg = deck(lib, names, work / f"shards_{len(paths) + 1}.txt", **SHARD_RUN)
-        twobody_group_moments.launches_by_stream.clear()
         _, launches, wall = run_on_card("shards", cfg, len(names), device)
-        by_stream = dict(twobody_group_moments.launches_by_stream)
-        total += launches
+        by_stream = {name: dict(fn.launches_by_stream) for name, fn in kernel_wrappers().items()}
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
         paths[tag] = cfg.output.path
-        phase("shards", f"{tag}: wall {wall:.3f} s, kernel launches {launches}")
-    per_shard = [by_stream.get(st.cuda_stream, 0) for st in place.streams]
-    phase("shards", f"two shards: kernel launches per shard {per_shard} (streams of {devices})")
-    if min(per_shard) <= 0:
+        phase("shards", f"{tag}: wall {wall:.3f} s, kernel launches {json.dumps(launches)}")
+    per_shard = {name: [st.get(s.cuda_stream, 0) for s in place.streams] for name, st in by_stream.items()}
+    phase("shards", f"two shards: kernel launches per shard {json.dumps(per_shard)} (streams of {devices})")
+    if min(per_shard["twobody_group_moments"]) <= 0:
         raise RuntimeError(f"a shard never launched the two-body kernel: {per_shard}")
     check_library("shards", paths["two shards"], lib, names)
     report = compare(paths["two shards"], paths["one shard"], rtol=SHARD_RTOL, atol=SHARD_ATOL)
@@ -634,7 +1023,7 @@ def shards_phase(work: Path) -> int:
     return total
 
 
-def mesh_phase() -> int:
+def mesh_phase() -> dict:
     """sharded_twobody_moments on a 1 x 2 mesh at the bench shape (every fe56
     two-body reaction a block of 512 rows: 2048 rows, P5, 361 groups, nq 16)
     against one-device twobody_moments at SHARD_RTOL / SHARD_ATOL. Returns
@@ -645,7 +1034,6 @@ def mesh_phase() -> int:
     from ndpp_tpu_torch import groups
     from ndpp_tpu_torch.host import unionize
     from ndpp_tpu_torch.ops.twobody import twobody_moments
-    from ndpp_tpu_torch.ops.twobody_inner import twobody_group_moments
     from ndpp_tpu_torch.parallel.mesh import auto_mesh, place_batch, sharded_twobody_moments
 
     preps, k = fe56_preps()
@@ -663,13 +1051,14 @@ def mesh_phase() -> int:
     devices, where = shard_devices()
     mesh = auto_mesh(devices, n_nuclide=1)
     placed = place_batch(mesh, {"e": e, "knots": knots, "pdf": pdf, "c1": c1, "c2": c2, "awr": awr})
-    twobody_group_moments.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = sharded_twobody_moments(mesh, placed["e"], placed["knots"], placed["pdf"], bounds, placed["c1"],
                                   placed["c2"], placed["awr"], order, nq)
     wall = time.perf_counter() - t0
-    launches = twobody_group_moments.launches
+    counts = read_counts()
+    launches = counts["twobody_group_moments"]
     dev = torch.device(devices[0])
     rows = [torch.as_tensor(np.ascontiguousarray(x), device=dev) for x in
             (e.reshape(-1), knots.reshape(n * t, k), pdf.reshape(n * t, k), bounds,
@@ -687,12 +1076,12 @@ def mesh_phase() -> int:
         raise RuntimeError(f"the mesh's two-body moments differ from one device's on {bad} elements")
     if launches < mesh.place.nd:
         raise RuntimeError(f"the mesh launched the two-body kernel {launches} times for {mesh.place.nd} cells")
-    return launches
+    return counts
 
 
-def scale_phase(work: Path, smi: str) -> int:
+def scale_phase(work: Path, smi: str) -> dict:
     """scripts/torch_scale_demo.py at SCALE_NUCLIDES nuclides as a user runs
-    it: exit 0, both passes' SCALE lines, nothing quarantined. Returns the
+    it: exit 0, both passes' SCALE lines, nothing quarantined. Returns each
     kernel's launches over both passes."""
     cmd = [sys.executable, str(ROOT / "scripts" / "torch_scale_demo.py"), "--nuclides", str(SCALE_NUCLIDES),
            "--workdir", str(work / "scale")]
@@ -704,12 +1093,15 @@ def scale_phase(work: Path, smi: str) -> int:
     rows = [json.loads(line[len("SCALE "):]) for line in proc.stdout.splitlines() if line.startswith("SCALE ")]
     for r in rows:
         phase("scale", f"{r['pass']}: {r['nuclides_done']} nuclides, {r['moments']} moments in {r['wall_s']:.3f} s = "
-              f"{r['moments_per_sec']:.4e} moments/s, quarantined {r['quarantined']}, kernel launches "
-              f"{r['kernel_launches']}, write {r['phase_seconds'].get('write', 0.0):.3f} s on {smi}")
+              f"{r['moments_per_sec']:.4e} moments/s, quarantined {r['quarantined']}, kernel launches: two-body "
+              f"{r['kernel_launches']}, free-gas {r['sab_density_launches']}, continuum {r['cm_inner_launches']}, "
+              f"write {r['phase_seconds'].get('write', 0.0):.3f} s on {smi}")
     if [r["pass"] for r in rows] != ["cold", "warm"] or any(r["quarantined"] or r["kernel_launches"] <= 0 for r in rows):
         raise RuntimeError(f"torch_scale_demo.py: passes {rows}")
     phase("scale", f"exit 0 in {wall:.2f} s (the library build and both passes)")
-    return sum(r["kernel_launches"] for r in rows)
+    return {"twobody_group_moments": sum(r["kernel_launches"] for r in rows),
+            "sab_density": sum(r["sab_density_launches"] for r in rows),
+            "cm_inner_moments": sum(r["cm_inner_launches"] for r in rows)}
 
 
 def main() -> int:
@@ -719,6 +1111,8 @@ def main() -> int:
     smi = environment()
     build_s = build()
     kern = kernel_vs_plain(smi)
+    fgk = freegas_kernel_phase(smi)
+    cmk = cm_kernel_phase(smi)
     with tempfile.TemporaryDirectory(prefix="ndpp_chip_smoke_") as work:
         by_deck = {
             "twobody": twobody_deck(Path(work)),
@@ -729,14 +1123,20 @@ def main() -> int:
         by_deck["mesh"] = mesh_phase()
         by_deck["scale"] = scale_phase(Path(work), smi)
     by_deck["selfcheck"] = selfcheck_phase()
-    phase("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
+    # launches by kernel, then by deck (each deck, and selfcheck's process, counted from 0)
+    launches = {name: {d: counts[name] for d, counts in by_deck.items()} for name in kernel_wrappers()}
+    for name, decks in NEEDS.items():
+        idle = [d for d in decks if launches[name][d] <= 0]
+        if idle:
+            raise RuntimeError(f"{name} never launched on {idle}: {launches[name]}")
+    phase("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s; launches by deck {json.dumps(launches)}")
     print(json.dumps({"kernels": [{
         "name": "twobody_group_moments",
         "route": "cuda",
         "source": "ndpp_tpu_torch/csrc/twobody_inner.cu",
         "replaces": "ndpp_tpu/ops/twobody_pallas_dd.py:120",
-        "launches": sum(by_deck.values()),  # each deck (and selfcheck's process) counted from 0
-        "launches_by_deck": by_deck,
+        "launches": sum(launches["twobody_group_moments"].values()),
+        "launches_by_deck": launches["twobody_group_moments"],
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         # ms, plain_ms, epilogue_ms: device time per call from graph replays
@@ -748,9 +1148,43 @@ def main() -> int:
         "bound_by": kern["bound_by"],
         "library_ms": None,  # no single PyTorch call computes these group moments
         "epilogue_ms": kern["epilogue_ms"],
-        "build_s": build_s,
+        "build_s": build_s["twobody_group_moments"],
         "shape": kern["shape"],
-    }]}))
+    }, {
+        "name": "sab_density",
+        "route": "cuda",
+        "source": "ndpp_tpu_torch/csrc/freegas_sab.cu",
+        "replaces": "ndpp_tpu/ops/freegas.py:580",  # _sab_dens, an XLA-level function (no Pallas body)
+        "launches": sum(launches["sab_density"].values()),
+        "launches_by_deck": launches["sab_density"],
+        "max_abs_err": fgk["max_abs_err"],
+        "max_rel_row_err": fgk["max_rel_row_err"],
+        "ms": fgk["ms"],
+        "timing": "cuda_graph_replay_x5_l2_warm",
+        "plain_ms": fgk["plain_ms"],
+        "bound_ms": fgk["bound_ms"],
+        "bound_by": fgk["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the free-gas density
+        "build_s": build_s["sab_density"],
+        "shape": fgk["shape"],
+    }, {
+        "name": "cm_inner_moments",
+        "route": "cuda",
+        "source": "ndpp_tpu_torch/csrc/cm_pointwise.cu",
+        "replaces": "ndpp_tpu/ops/continuum.py:343",  # cm_moments_pointwise's chunk body (XLA-level, no Pallas body)
+        "launches": sum(launches["cm_inner_moments"].values()),
+        "launches_by_deck": launches["cm_inner_moments"],
+        "max_abs_err": cmk["max_abs_err"],
+        "max_rel_row_err": cmk["max_rel_row_err"],
+        "ms": cmk["ms"],  # ms, plain_ms, bound_ms: sums over the kalbach, law61cm and nbody tiles
+        "timing": "cuda_graph_replay_x5_l2_warm",
+        "plain_ms": cmk["plain_ms"],
+        "bound_ms": cmk["bound_ms"],
+        "bound_by": cmk["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the CM inner integral
+        "build_s": build_s["cm_inner_moments"],
+        "tiles": cmk["tiles"],
+    }], "build_wall_s": build_s["wall_s"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

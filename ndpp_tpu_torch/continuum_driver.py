@@ -27,7 +27,7 @@ from ndpp_tpu_torch.parallel import rows as rows_mod
 from ndpp_tpu_torch.utils.errors import AceFormatError, NdppError
 from ndpp_tpu_torch.utils.metrics import RunMetrics
 
-_CONTINUUM_TILE = 256  # rows per cm_moments_pointwise dispatch; its compute is chunked inside
+_CONTINUUM_TILE = 256  # rows per cm_moments_pointwise dispatch: one kernel launch on the card, chunked on the CPU
 
 
 def _window_knot_bound(e_rows: np.ndarray, awr: float, e_knots: np.ndarray) -> int:
@@ -225,6 +225,7 @@ def _law_moments(
                 npan = cont_ops.outer_panel_count(ke, gw, angular, kmu, "lagrange", angular == "tabular")
                 for k, sl, start, length in plan.pieces:
                     cut = {name: None if a is None else a[k][sl] for name, a in dev.items()}
+                    # outer panels per pass of the plain (CPU) path; the CUDA kernel takes the tile whole
                     chunk = cont_ops.chunk_for(length, nq_w, nq_y, sy, npan, budget)
                     if metrics is not None:
                         metrics.continuum_chunks[chunk] += 1

@@ -29,7 +29,7 @@ from ndpp_tpu_torch.parallel import rows as rows_mod
 from ndpp_tpu_torch.utils import log as log_mod
 from ndpp_tpu_torch.utils.metrics import RunMetrics
 
-_FREEGAS_TILE = 256  # rows per freegas_moments_sab dispatch at e_tile 512; its compute is chunked inside
+_FREEGAS_TILE = 256  # rows per freegas_moments_sab dispatch at e_tile 512: one density launch on the card, chunked on the CPU
 _ZERO_K_TILE = 256  # rows per two-body dispatch of the 0K elastic rows that are not sliced, at e_tile 512
 
 

@@ -16,7 +16,11 @@ cm_moments_pointwise
   construction, cost linear in the group count. See its docstring for the
   full derivation.
 
-Plain float64 torch functions on the device of their arguments. Lookups are
+Float64 torch functions on the device of their arguments, except the inner
+integral of cm_moments_pointwise: cm_inner_moments runs the hand-written
+CUDA kernel (csrc/cm_pointwise.cu) on a CUDA tensor, one launch for every
+outer node of a tile, and its plain torch version cm_inner_moments_ref on a
+CPU tensor; there is no fallback from one to the other. Lookups are
 ``torch.searchsorted`` + ``torch.gather``; sums into groups go through
 ops.segment.segment_group_sum (cumsum + gather), which adds in a fixed
 order, so a CUDA run gives the same bits every time (a scatter-add of
@@ -25,13 +29,19 @@ float64 uses atomics there and does not).
 
 from __future__ import annotations
 
+import ctypes
+from collections import Counter
+from functools import lru_cache
+from pathlib import Path
+
 import numpy as np
 import scipy.special as sps
 import torch
 
-from ndpp_tpu_torch.ops.legendre import gl_nodes_weights
+from ndpp_tpu_torch.ops.legendre import device_table, gl_nodes_weights
 from ndpp_tpu_torch.ops.panelsplit import lagrange_cumulants
 from ndpp_tpu_torch.ops.segment import effective_bounds, segment_group_sum
+from ndpp_tpu_torch.utils.build import build_cuda
 
 # Bytes of float64 node tensors one cm_moments_pointwise chunk may hold at a
 # time (chunk_for). About _LIVE_NODE_TENSORS tensors of (T, NW, SY, QY) are
@@ -176,7 +186,8 @@ def outer_panel_count(ke: int, nb: int, angular: str, kmu: int, group_split: str
 def chunk_for(rows: int, nq_w: int, nq_y: int, sy: int, npan: int, budget_bytes: int = CHUNK_BUDGET_BYTES) -> int:
     """Outer panels per chunk so the chunk's live (T, NW, SY, QY) float64
     tensors (NW = chunk * nq_w) stay inside `budget_bytes`: between 1 and
-    all `npan` panels."""
+    all `npan` panels. It bounds the plain path only: the CUDA kernel holds
+    no such tensor."""
     per_panel = max(rows, 1) * nq_w * sy * nq_y * 8 * _LIVE_NODE_TENSORS
     return max(1, min(npan, budget_bytes // per_panel))
 
@@ -243,10 +254,11 @@ def cm_moments_pointwise(
     (ops/panelsplit) — outer cost becomes independent of G. "panels" is the
     boundary-edged scheme.
 
-    chunk: outer panels evaluated at a time. It bounds the live
-    (T, chunk*nq_w, SY, QY) tensors and nothing else: each outer node's
-    value is a sum over its own inner panels, so the result does not depend
-    on it (ops.continuum.chunk_for picks it from a byte budget).
+    chunk: outer panels evaluated at a time by the plain path. It bounds
+    the live (T, chunk*nq_w, SY, QY) tensors and nothing else: each outer
+    node's value is a sum over its own inner panels, so the result does not
+    depend on it (ops.continuum.chunk_for picks it from a byte budget). The
+    CUDA kernel takes every outer node of the call in one launch.
     """
     dtype, dev = e.dtype, e.device
     tt = e.shape[0]
@@ -321,14 +333,9 @@ def cm_moments_pointwise(
     phalf = 0.5 * (w_edges[:, 1:] - w_edges[:, :-1])
 
     xw, ww_ = (torch.as_tensor(a, dtype=dtype, device=dev) for a in gl_nodes_weights(nq_w))
-    xy, wy_ = (torch.as_tensor(a, dtype=dtype, device=dev) for a in gl_nodes_weights(nq_y))
-
-    use_window = 0 < ksel < ke
-    nsel = ksel if use_window else ke
 
     # Per-knot-panel affine coefficients of every interpolation channel,
-    # computed ONCE at (T, KE-1) and looked up per inner panel with one
-    # gather inside the chunk body.
+    # computed ONCE at (T, KE-1) and looked up per inner panel.
     interp_chans = []
     if energy != "nbody":
         interp_chans.append(pdf_e)
@@ -339,161 +346,28 @@ def cm_moments_pointwise(
         a_c, b_c = _affine_panel_coeffs(e_knots, torch.stack(interp_chans, dim=-1))
         # (T, KE-1, 2*NCH): [a_0, b_0, a_1, b_1, ...]
         chan_payload = torch.stack([a_c, b_c], dim=-1).reshape(tt, ke - 1, 2 * len(interp_chans))
-    if angular == "tabular":
-        mu_flat = mu_pdf.reshape(tt, ke * kmu)
-        mkv = mu_knots[None, None, :]  # (1, 1, KMU)
 
-    lagrange = group_split == "lagrange"
-    if lagrange:
-        acc = e.new_zeros((tt, npan, nq_w, order + 1))  # density node values
+    # the inner integral at every outer node: one kernel launch on the card,
+    # the plain version `chunk` outer panels at a time on the CPU
+    nw = npan * nq_w
+    w = (pmid[:, :, None] + phalf[:, :, None] * xw[None, None, :]).reshape(tt, nw)  # (T, NW)
+    tab = angular == "tabular"
+    nb = energy == "nbody"
+    mnode = cm_inner_moments(
+        w, s, yk, e_knots.contiguous(), chan_payload, mu_knots if tab else None, mu_pdf.contiguous() if tab else None,
+        nbody_emax if nb else None, c_norm if nb else None, float(nbody_expo), order, nq_y, angular, energy, ksel,
+        chunk=max(1, chunk) * nq_w,
+    )  # (T, NW, L+1)
+    if group_split == "lagrange":
+        # node values of the DENSITY g(w) = dF/dw (2w from dE' = 2w dw, 1/s
+        # Jacobian) — panel half-widths and GL weights are applied by
+        # lagrange_cumulants, NOT here
+        acc = (mnode * (2.0 * w * inv_s[:, None])[..., None]).reshape(tt, npan, nq_w, order + 1)
     else:
-        acc = e.new_zeros((tt, npan, order + 1))  # panel integrals
-    s4 = s[:, None, None, None]
-    for c0 in range(0, npan, max(1, chunk)):
-        pm = pmid[:, c0 : c0 + chunk]  # (T, PC)
-        ph = phalf[:, c0 : c0 + chunk]
-        pc = pm.shape[1]
-        nw = pc * nq_w
-        w = (pm[:, :, None] + ph[:, :, None] * xw[None, None, :]).reshape(tt, nw)  # (T, NW)
+        w_wt = (phalf[:, :, None] * ww_[None, None, :]).reshape(tt, nw) * 2.0 * w  # dE' = 2w dw
+        acc = (mnode * (w_wt * inv_s[:, None])[..., None]).reshape(tt, npan, nq_w, order + 1).sum(dim=2)
 
-        ylo_i = torch.maximum((w - s1).abs(), y_lo[:, None])  # (T, NW)
-        yhi_i = torch.minimum(w + s1, y_hi[:, None])
-        ok_w = yhi_i > ylo_i
-
-        # ---- inner panel edges in y
-        if use_window:
-            j0 = _panel_index_rows(yk, ylo_i).clamp_(0, ke - nsel)  # (T, NW)
-            # the window of nsel consecutive knots from j0
-            widx = (j0[:, :, None] + torch.arange(nsel, device=dev)).clamp_(max=ke - 1)
-            yk_sel = torch.gather(yk, 1, widx.reshape(tt, nw * nsel)).reshape(tt, nw, nsel)
-        else:
-            j0 = None
-            yk_sel = yk[:, None, :].expand(tt, nw, ke)
-        lo_e = ylo_i[..., None]
-        hi_e = yhi_i[..., None]
-        kn_clip = torch.minimum(torch.maximum(yk_sel, lo_e), hi_e)
-        if angular == "tabular":
-            iparts = [kn_clip, lo_e, hi_e]
-            disc = ((s1**2)[..., None] * mkv**2 + (w**2)[..., None] - (s1**2)[..., None]).clamp_min(0.0)
-            sq = torch.sqrt(disc)
-            for sgn in (1.0, -1.0):
-                iparts.append(torch.minimum(torch.maximum(-s1[..., None] * mkv + sgn * sq, lo_e), hi_e))
-            y_edges = torch.sort(torch.cat(iparts, dim=-1), dim=-1).values  # (T, NW, EY)
-        else:
-            # kalbach/isotropic inner edges are just the clipped knots:
-            # sorted rows stay sorted under clip, the window ends bracket
-            # them, and out-of-window knots collapse to dead (zero-width)
-            # edge panels — the same multiset as a sorted concat, no sort
-            y_edges = torch.cat([lo_e, kn_clip, hi_e], dim=-1)  # (T, NW, EY)
-        sy = y_edges.shape[-1] - 1
-        ymid = 0.5 * (y_edges[..., 1:] + y_edges[..., :-1])  # (T, NW, SY)
-        yhalf = 0.5 * (y_edges[..., 1:] - y_edges[..., :-1])
-        y = ymid[..., None] + yhalf[..., None] * xy  # (T, NW, SY, QY)
-        wgt_y = (yhalf[..., None] * wy_) * ok_w[..., None, None]
-
-        x = y * y  # E'_cm at nodes
-        w4 = w[:, :, None, None]
-        mu = ((w4**2 - s4**2 - x) / (2.0 * s4 * y).clamp_min(1e-30)).clamp_(-1.0, 1.0)
-        mu_lab = ((w4**2 + s4**2 - x) / (2.0 * s4 * w4).clamp_min(1e-30)).clamp_(-1.0, 1.0)
-
-        # Interpolation channels. For knot-delimited inner edges (kalbach /
-        # isotropic / nbody) the y-panel -> knot-panel correspondence is
-        # STATIC: y_edges = [lo, clip(knots j0..j0+nsel-1), hi], so live
-        # panel p lies in knot panel j0 + p - 1 (panel 0 is always dead:
-        # kn_clip[0] collapses onto lo); dead (clip-collapsed) panels may
-        # read an arbitrary finite panel payload — their contribution is
-        # zeroed by wgt_y. The tabular path counts knots instead (its inner
-        # edges interleave mu-crossing roots with the knots, so the
-        # correspondence is data-dependent).
-        cf = None
-        if chan_payload is not None:
-            if angular == "tabular":
-                if use_window:
-                    cnt = torch.searchsorted(yk_sel, ymid, right=True)  # knots of the window <= ymid
-                    jq = j0[:, :, None] + (cnt - 1).clamp_(0, nsel - 2)
-                else:
-                    cnt = torch.searchsorted(yk, ymid.reshape(tt, nw * sy), right=True).reshape(tt, nw, sy)
-                    jq = (cnt - 1).clamp_(0, nsel - 2)
-                jq = jq.clamp_(0, ke - 2)
-            elif use_window:
-                jq = (j0[:, :, None] + (torch.arange(nsel + 1, device=dev) - 1)).clamp_(0, ke - 2)
-            else:
-                jq = None
-            if jq is None:
-                p_idx = torch.as_tensor(np.clip(np.arange(ke + 1) - 1, 0, ke - 2), device=dev)  # static
-                cf = chan_payload[:, p_idx, :][:, None]  # (T, 1, SY, C) broadcast
-            else:
-                cf = _gather_rows(chan_payload, jq.reshape(tt, nw * sy)).reshape(tt, nw, sy, -1)
-
-        if energy == "nbody":
-            # p_E per unit E'_cm carries sqrt(E'_cm) = y from the phase-space
-            # form; the measure is dy with |J| = 1/s (no extra 2y)
-            pe = c_norm[:, None, None, None] * y * (nbody_emax[:, None, None, None] - x).clamp_min(0.0) ** nbody_expo
-        else:
-            pe = cf[..., 0:1] + cf[..., 1:2] * x
-
-        if angular == "kalbach":
-            off = 0 if energy == "nbody" else 2
-            rr = cf[..., off : off + 1] + cf[..., off + 1 : off + 2] * x
-            aa = (cf[..., off + 2 : off + 3] + cf[..., off + 3 : off + 4] * x).clamp_min(1e-12)
-            # two-exp form of a/(2 sinh a) (cosh(a mu) + r sinh(a mu)):
-            # cosh + r sinh = ((1+r) e^{a mu} + (1-r) e^{-a mu})/2 and
-            # 2 sinh a = e^a - e^-a = em (2 + em)/(1 + em) with em = expm1(a).
-            # The naive e^a - e^-a cancels catastrophically for small a
-            # (~eps/(2 a) relative, ~1e-4 at the 1e-12 clamp that every
-            # a=0/near-isotropic law-44 knot hits); expm1 is exact there and
-            # a/em -> 1 smoothly. Same operations as the reference, so the
-            # two differ by the ulp of exp/expm1 only.
-            ex = torch.exp(aa * mu)
-            em = torch.expm1(aa)
-            num = aa * ((1.0 + rr) * (ex * ex) + (1.0 - rr)) * (1.0 + em)
-            pa = num / (ex * (2.0 * em * (2.0 + em)))
-        elif angular == "tabular":
-            xm = (ymid * ymid).reshape(tt, nw * sy)  # panel-constant interp selectors
-            je = _panel_index_rows(e_knots, xm)  # (T, NW*SY)
-            mum = (
-                (w[:, :, None] ** 2 - s1[..., None] ** 2 - ymid * ymid) / (2.0 * s1[..., None] * ymid).clamp_min(1e-30)
-            ).reshape(tt, nw * sy).clamp_(-1.0, 1.0)
-            jm = _panel_index_rows(mu_knots, mum)
-            f00 = je * kmu + jm
-            c00, c01, c10, c11 = (
-                torch.gather(mu_flat, 1, f00 + d).reshape(tt, nw, sy, 1) for d in (0, 1, kmu, kmu + 1)
-            )
-            ek0 = torch.gather(e_knots, 1, je).reshape(tt, nw, sy, 1)
-            ek1 = torch.gather(e_knots, 1, je + 1).reshape(tt, nw, sy, 1)
-            mk0 = mu_knots[jm].reshape(tt, nw, sy, 1)
-            mk1 = mu_knots[jm + 1].reshape(tt, nw, sy, 1)
-            t_e = ((x - ek0) / (ek1 - ek0).clamp_min(1e-30)).clamp_(0.0, 1.0)
-            t_m = ((mu - mk0) / (mk1 - mk0).clamp_min(1e-30)).clamp_(0.0, 1.0)
-            lo_mix = c00 + t_m * (c01 - c00)
-            hi_mix = c10 + t_m * (c11 - c10)
-            pa = lo_mix + t_e * (hi_mix - lo_mix)
-        else:  # isotropic
-            pa = 0.5
-
-        wgt = pe * pa * wgt_y  # (T, NW, SY, QY)
-        m_list = [torch.sum(wgt, dim=(2, 3))]  # (T, NW)
-        if order >= 1:
-            p_prev = torch.ones_like(mu_lab)
-            p_cur = mu_lab
-            m_list.append(torch.sum(wgt * p_cur, dim=(2, 3)))
-            for l in range(1, order):
-                p_next = ((2 * l + 1) * mu_lab * p_cur - l * p_prev) / (l + 1)
-                p_prev, p_cur = p_cur, p_next
-                m_list.append(torch.sum(wgt * p_cur, dim=(2, 3)))
-        mnode = torch.stack(m_list, dim=-1)  # (T, NW, L+1)
-        if lagrange:
-            # node values of the DENSITY g(w) = dF/dw (2w from dE' = 2w dw,
-            # 1/s Jacobian) — panel half-widths and GL weights are applied
-            # by lagrange_cumulants, NOT here
-            mnode = mnode * (2.0 * w * inv_s[:, None])[..., None]
-            acc[:, c0 : c0 + pc] = mnode.reshape(tt, pc, nq_w, order + 1)
-        else:
-            w_wt = (ph[:, :, None] * ww_[None, None, :]).reshape(tt, nw) * 2.0 * w  # dE' = 2w dw
-            mnode = mnode * (w_wt * inv_s[:, None])[..., None]
-            acc[:, c0 : c0 + pc] = mnode.reshape(tt, pc, nq_w, order + 1).sum(dim=2)
-
-    if lagrange:
+    if group_split == "lagrange":
         # effective boundaries: with clamping the edge groups absorb the
         # below-/above-window mass, so the outermost boundaries are the
         # DOMAIN ends (w_min, w_max); without clamping the domain was
@@ -509,3 +383,318 @@ def cm_moments_pointwise(
     # one contiguous run of panels; the domain was clipped into the table
     # above, so the edge groups take everything (clamp semantics either way)
     return segment_group_sum(acc.transpose(1, 2), pmid**2, bounds, True)
+
+
+# ---------------------------------------------------------------------------
+# The inner integral of cm_moments_pointwise on the card: the hand-written
+# CUDA kernel csrc/cm_pointwise.cu and its plain version.
+
+MAX_ORDER = 10
+MAX_NQ_Y = 64  # inner GL nodes the kernel's parameter block holds (kMaxNqY)
+ANGULAR = ("kalbach", "tabular", "isotropic")
+ENERGY = ("tabular", "nbody")
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "cm_pointwise.cu"
+
+
+def payload_columns(angular: str, energy: str) -> int:
+    """2 * NCH: the columns of the (T, KE-1, 2*NCH) channel payload, an (a, b)
+    pair for p_E (tabular energy) and for r and a (Kalbach)."""
+    return 2 * ((energy != "nbody") + (2 if angular == "kalbach" else 0))
+
+
+def cm_inner_moments_ref(
+    w, s, yk, e_knots, payload, mu_knots, mu_pdf, nbody_emax, c_norm, nbody_expo: float,
+    order: int, nq_y: int, angular: str, energy: str, ksel: int, chunk: int | None = None,
+):
+    """Plain torch version of the CM inner kernel: (T, NW, L+1).
+
+    At every outer node w (T, NW), the sum over the inner y-panels of
+    [|w - s|, w + s] cut at the data knots (a window of ksel of them when
+    0 < ksel < KE) and, for tabular angles, at the mu-knot crossing roots,
+    and over their nq_y GL nodes, of p_E(y^2) p_mu(mu_cm) wgt_y P_l(mu_lab),
+    zero where the window misses the knot table (ok_w). s: (T,); yk =
+    sqrt(e_knots): (T, KE); payload: (T, KE-1, 2*NCH) affine channel
+    coefficients, None without channels; mu_knots (KMU,) and mu_pdf (T, KE,
+    KMU) for tabular angles; nbody_emax and c_norm (T,) for N-body energies.
+    chunk: outer nodes per pass of the torch body (all at once when None);
+    each node's value is a sum over its own inner panels, so the result does
+    not depend on it.
+    """
+    tt, nw_all = w.shape
+    ke = yk.shape[1]
+    nsel = ksel if 0 < ksel < ke else ke
+    if chunk is None or chunk >= nw_all:
+        return _cm_inner_body(w, s, yk, e_knots, payload, mu_knots, mu_pdf, nbody_emax, c_norm, nbody_expo,
+                              order, nq_y, angular, energy, nsel)
+    out = w.new_empty((tt, nw_all, order + 1))
+    for c0 in range(0, nw_all, chunk):
+        out[:, c0 : c0 + chunk] = _cm_inner_body(
+            w[:, c0 : c0 + chunk], s, yk, e_knots, payload, mu_knots, mu_pdf, nbody_emax, c_norm, nbody_expo,
+            order, nq_y, angular, energy, nsel,
+        )
+    return out
+
+
+def cm_inner_edges(w, s, yk, mu_knots, nsel: int):
+    """The inner y-panel edges of every outer node w (T, NW): (y_edges
+    (T, NW, EY), ok_w (T, NW), j0 (T, NW) or None, yk_sel (T, NW, nsel)).
+    [lo, clip(knots), hi] with lo, hi = max(|w - s|, y_0), min(w + s,
+    y_{K-1}); the knots are a window of nsel of them from j0 when nsel < KE;
+    with mu_knots (tabular angles) the clipped crossing roots join and the
+    edges are sorted."""
+    tt, nw = w.shape
+    ke = yk.shape[1]
+    s1 = s[:, None]  # (T, 1)
+    ylo_i = torch.maximum((w - s1).abs(), yk[:, :1])  # (T, NW)
+    yhi_i = torch.minimum(w + s1, yk[:, -1:])
+    ok_w = yhi_i > ylo_i
+    if nsel < ke:
+        j0 = _panel_index_rows(yk, ylo_i).clamp_(0, ke - nsel)  # (T, NW)
+        # the window of nsel consecutive knots from j0
+        widx = (j0[:, :, None] + torch.arange(nsel, device=w.device)).clamp_(max=ke - 1)
+        yk_sel = torch.gather(yk, 1, widx.reshape(tt, nw * nsel)).reshape(tt, nw, nsel)
+    else:
+        j0 = None
+        yk_sel = yk[:, None, :].expand(tt, nw, ke)
+    lo_e = ylo_i[..., None]
+    hi_e = yhi_i[..., None]
+    kn_clip = torch.minimum(torch.maximum(yk_sel, lo_e), hi_e)
+    if mu_knots is None:
+        # kalbach/isotropic inner edges are just the clipped knots:
+        # sorted rows stay sorted under clip, the window ends bracket
+        # them, and out-of-window knots collapse to dead (zero-width)
+        # edge panels — the same multiset as a sorted concat, no sort
+        return torch.cat([lo_e, kn_clip, hi_e], dim=-1), ok_w, j0, yk_sel
+    mkv = mu_knots[None, None, :]  # (1, 1, KMU)
+    iparts = [kn_clip, lo_e, hi_e]
+    disc = ((s1**2)[..., None] * mkv**2 + (w**2)[..., None] - (s1**2)[..., None]).clamp_min(0.0)
+    sq = torch.sqrt(disc)
+    for sgn in (1.0, -1.0):
+        iparts.append(torch.minimum(torch.maximum(-s1[..., None] * mkv + sgn * sq, lo_e), hi_e))
+    return torch.sort(torch.cat(iparts, dim=-1), dim=-1).values, ok_w, j0, yk_sel
+
+
+def _cm_inner_body(w, s, yk, e_knots, chan_payload, mu_knots, mu_pdf, nbody_emax, c_norm, nbody_expo: float,
+                   order: int, nq_y: int, angular: str, energy: str, nsel: int):
+    """cm_inner_moments_ref on one chunk of outer nodes, all at once."""
+    dtype, dev = w.dtype, w.device
+    tt, nw = w.shape
+    ke = yk.shape[1]
+    use_window = nsel < ke
+    s1 = s[:, None]  # (T, 1)
+    s4 = s[:, None, None, None]
+    xy, wy_ = (device_table(tuple(a), dtype, dev) for a in gl_nodes_weights(nq_y))
+    if angular == "tabular":
+        kmu = mu_knots.shape[0]
+        mu_flat = mu_pdf.reshape(tt, ke * kmu)
+
+    y_edges, ok_w, j0, yk_sel = cm_inner_edges(w, s, yk, mu_knots if angular == "tabular" else None, nsel)
+    sy = y_edges.shape[-1] - 1
+    ymid = 0.5 * (y_edges[..., 1:] + y_edges[..., :-1])  # (T, NW, SY)
+    yhalf = 0.5 * (y_edges[..., 1:] - y_edges[..., :-1])
+    y = ymid[..., None] + yhalf[..., None] * xy  # (T, NW, SY, QY)
+    wgt_y = (yhalf[..., None] * wy_) * ok_w[..., None, None]
+
+    x = y * y  # E'_cm at nodes
+    w4 = w[:, :, None, None]
+    mu = ((w4**2 - s4**2 - x) / (2.0 * s4 * y).clamp_min(1e-30)).clamp_(-1.0, 1.0)
+    mu_lab = ((w4**2 + s4**2 - x) / (2.0 * s4 * w4).clamp_min(1e-30)).clamp_(-1.0, 1.0)
+
+    # Interpolation channels. For knot-delimited inner edges (kalbach /
+    # isotropic / nbody) the y-panel -> knot-panel correspondence is
+    # STATIC: y_edges = [lo, clip(knots j0..j0+nsel-1), hi], so live
+    # panel p lies in knot panel j0 + p - 1 (panel 0 is always dead:
+    # kn_clip[0] collapses onto lo); dead (clip-collapsed) panels may
+    # read an arbitrary finite panel payload — their contribution is
+    # zeroed by wgt_y. The tabular path counts knots instead (its inner
+    # edges interleave mu-crossing roots with the knots, so the
+    # correspondence is data-dependent).
+    cf = None
+    if chan_payload is not None:
+        if angular == "tabular":
+            if use_window:
+                cnt = torch.searchsorted(yk_sel, ymid, right=True)  # knots of the window <= ymid
+                jq = j0[:, :, None] + (cnt - 1).clamp_(0, nsel - 2)
+            else:
+                cnt = torch.searchsorted(yk, ymid.reshape(tt, nw * sy), right=True).reshape(tt, nw, sy)
+                jq = (cnt - 1).clamp_(0, nsel - 2)
+            jq = jq.clamp_(0, ke - 2)
+        elif use_window:
+            jq = (j0[:, :, None] + (torch.arange(nsel + 1, device=dev) - 1)).clamp_(0, ke - 2)
+        else:
+            jq = None
+        if jq is None:
+            p_idx = device_table(tuple(np.clip(np.arange(ke + 1) - 1, 0, ke - 2).tolist()), torch.int64, dev)  # static
+            cf = chan_payload[:, p_idx, :][:, None]  # (T, 1, SY, C) broadcast
+        else:
+            cf = _gather_rows(chan_payload, jq.reshape(tt, nw * sy)).reshape(tt, nw, sy, -1)
+
+    if energy == "nbody":
+        # p_E per unit E'_cm carries sqrt(E'_cm) = y from the phase-space
+        # form; the measure is dy with |J| = 1/s (no extra 2y)
+        pe = c_norm[:, None, None, None] * y * (nbody_emax[:, None, None, None] - x).clamp_min(0.0) ** nbody_expo
+    else:
+        pe = cf[..., 0:1] + cf[..., 1:2] * x
+
+    if angular == "kalbach":
+        off = 0 if energy == "nbody" else 2
+        rr = cf[..., off : off + 1] + cf[..., off + 1 : off + 2] * x
+        aa = (cf[..., off + 2 : off + 3] + cf[..., off + 3 : off + 4] * x).clamp_min(1e-12)
+        # two-exp form of a/(2 sinh a) (cosh(a mu) + r sinh(a mu)):
+        # cosh + r sinh = ((1+r) e^{a mu} + (1-r) e^{-a mu})/2 and
+        # 2 sinh a = e^a - e^-a = em (2 + em)/(1 + em) with em = expm1(a).
+        # The naive e^a - e^-a cancels catastrophically for small a
+        # (~eps/(2 a) relative, ~1e-4 at the 1e-12 clamp that every
+        # a=0/near-isotropic law-44 knot hits); expm1 is exact there and
+        # a/em -> 1 smoothly. Same operations as the reference, so the
+        # two differ by the ulp of exp/expm1 only.
+        ex = torch.exp(aa * mu)
+        em = torch.expm1(aa)
+        num = aa * ((1.0 + rr) * (ex * ex) + (1.0 - rr)) * (1.0 + em)
+        pa = num / (ex * (2.0 * em * (2.0 + em)))
+    elif angular == "tabular":
+        xm = (ymid * ymid).reshape(tt, nw * sy)  # panel-constant interp selectors
+        je = _panel_index_rows(e_knots, xm)  # (T, NW*SY)
+        mum = (
+            (w[:, :, None] ** 2 - s1[..., None] ** 2 - ymid * ymid) / (2.0 * s1[..., None] * ymid).clamp_min(1e-30)
+        ).reshape(tt, nw * sy).clamp_(-1.0, 1.0)
+        jm = _panel_index_rows(mu_knots, mum)
+        f00 = je * kmu + jm
+        c00, c01, c10, c11 = (
+            torch.gather(mu_flat, 1, f00 + d).reshape(tt, nw, sy, 1) for d in (0, 1, kmu, kmu + 1)
+        )
+        ek0 = torch.gather(e_knots, 1, je).reshape(tt, nw, sy, 1)
+        ek1 = torch.gather(e_knots, 1, je + 1).reshape(tt, nw, sy, 1)
+        mk0 = mu_knots[jm].reshape(tt, nw, sy, 1)
+        mk1 = mu_knots[jm + 1].reshape(tt, nw, sy, 1)
+        t_e = ((x - ek0) / (ek1 - ek0).clamp_min(1e-30)).clamp_(0.0, 1.0)
+        t_m = ((mu - mk0) / (mk1 - mk0).clamp_min(1e-30)).clamp_(0.0, 1.0)
+        lo_mix = c00 + t_m * (c01 - c00)
+        hi_mix = c10 + t_m * (c11 - c10)
+        pa = lo_mix + t_e * (hi_mix - lo_mix)
+    else:  # isotropic
+        pa = 0.5
+
+    wgt = pe * pa * wgt_y  # (T, NW, SY, QY)
+    m_list = [torch.sum(wgt, dim=(2, 3))]  # (T, NW)
+    if order >= 1:
+        p_prev = torch.ones_like(mu_lab)
+        p_cur = mu_lab
+        m_list.append(torch.sum(wgt * p_cur, dim=(2, 3)))
+        for l in range(1, order):
+            p_next = ((2 * l + 1) * mu_lab * p_cur - l * p_prev) / (l + 1)
+            p_prev, p_cur = p_cur, p_next
+            m_list.append(torch.sum(wgt * p_cur, dim=(2, 3)))
+    return torch.stack(m_list, dim=-1)  # (T, NW, L+1)
+
+
+def _check_cm(w, s, yk, e_knots, payload, mu_knots, mu_pdf, nbody_emax, c_norm,
+              order: int, nq_y: int, angular: str, energy: str, ksel: int) -> None:
+    name = "cm_inner_moments"
+    if not 0 <= order <= MAX_ORDER:
+        raise ValueError(f"{name}: order must be in [0, {MAX_ORDER}], got {order}")
+    if not 0 < nq_y <= MAX_NQ_Y:
+        raise ValueError(f"{name}: nq_y must be in [1, {MAX_NQ_Y}], got {nq_y}")
+    if angular not in ANGULAR or energy not in ENERGY:
+        raise ValueError(f"{name}: angular must be one of {ANGULAR} and energy one of {ENERGY}, "
+                         f"got {angular!r}, {energy!r}")
+    if ksel < 0:
+        raise ValueError(f"{name}: ksel must be >= 0, got {ksel}")
+    if w.dim() != 2 or yk.dim() != 2 or yk.shape[0] != w.shape[0] or yk.shape[1] < 2:
+        raise ValueError(f"{name}: w must be (T, NW) and yk (T, KE >= 2), got {tuple(w.shape)}, {tuple(yk.shape)}")
+    tt, ke = yk.shape
+    ncol = payload_columns(angular, energy)
+    tab = angular == "tabular"
+    kmu = mu_knots.shape[0] if tab and mu_knots is not None and mu_knots.dim() == 1 else 0
+    if tab and kmu < 2:
+        raise ValueError(f"{name}: tabular angles need mu_knots (KMU,) with KMU >= 2")
+    shapes = {
+        "s": (s, (tt,)), "e_knots": (e_knots, (tt, ke)),
+        "payload": (payload, (tt, ke - 1, ncol) if ncol else None),
+        "mu_knots": (mu_knots, (kmu,) if tab else None), "mu_pdf": (mu_pdf, (tt, ke, kmu) if tab else None),
+        "nbody_emax": (nbody_emax, (tt,) if energy == "nbody" else None),
+        "c_norm": (c_norm, (tt,) if energy == "nbody" else None),
+    }
+    for key, (x, shape) in shapes.items():
+        if shape is None:
+            if x is not None:
+                raise ValueError(f"{name}: {key} must be None for angular={angular!r}, energy={energy!r}")
+            continue
+        if x is None or tuple(x.shape) != shape:
+            raise ValueError(f"{name}: {key} must be {shape}, got {None if x is None else tuple(x.shape)}")
+    for key, x in (("w", w), ("yk", yk), *((k, x) for k, (x, sh) in shapes.items() if sh is not None)):
+        if x.dtype != torch.float64:
+            raise TypeError(f"{name}: {key} must be float64, got {x.dtype}")
+        if x.device != w.device:
+            raise ValueError(f"{name}: {key} on {x.device}, w on {w.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def cm_inner_moments(
+    w, s, yk, e_knots, payload, mu_knots, mu_pdf, nbody_emax, c_norm, nbody_expo: float,
+    order: int, nq_y: int, angular: str, energy: str, ksel: int, chunk: int | None = None,
+):
+    """The inner integral of cm_moments_pointwise at every outer node: (T, NW, L+1).
+
+    Operands as cm_inner_moments_ref; an operand the variant does not read
+    is None. CUDA tensors launch the kernel on the current stream without
+    synchronising, every outer node in one launch (chunk is not read); CPU
+    tensors take cm_inner_moments_ref, `chunk` outer nodes at a time.
+    """
+    _check_cm(w, s, yk, e_knots, payload, mu_knots, mu_pdf, nbody_emax, c_norm, order, nq_y, angular, energy, ksel)
+    if w.device.type == "cpu":
+        return cm_inner_moments_ref(w, s, yk, e_knots, payload, mu_knots, mu_pdf, nbody_emax, c_norm, nbody_expo,
+                                    order, nq_y, angular, energy, ksel, chunk)
+    if w.device.type != "cuda":
+        raise ValueError(f"cm_inner_moments: unsupported device {w.device}")
+    tt, nw = w.shape
+    ke = yk.shape[1]
+    out = torch.empty((tt, nw, order + 1), dtype=torch.float64, device=w.device)
+    if tt == 0 or nw == 0:
+        return out
+    kmu = 0 if mu_knots is None else mu_knots.shape[0]
+    lib = _cm_library()
+    xy, wy = gl_nodes_weights(nq_y)
+    nsel = ksel if 0 < ksel < ke else ke
+
+    def ptr(x):
+        return 0 if x is None else x.data_ptr()
+
+    staged = ctypes.c_int(0)
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        rc = lib.cm_inner_launch(
+            *(ptr(x) for x in (w, s, yk, e_knots, payload, mu_knots, mu_pdf, nbody_emax, c_norm)),
+            float(nbody_expo), tt, nw, ke, kmu, nsel, ANGULAR.index(angular), ENERGY.index(energy), order, nq_y,
+            xy.ctypes.data, wy.ctypes.data, out.data_ptr(), ctypes.byref(staged), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"cm_inner_moments: kernel launch failed with cudaError {rc}")
+    cm_inner_moments.launches += 1
+    cm_inner_moments.launches_by_stream[stream] += 1
+    cm_inner_moments.row_tables["shared" if staged.value else "l2"] += 1
+    return out
+
+
+# Launches of the CUDA kernel since the last reset, in all, by the CUDA
+# stream that took them, and by where the rows' tables were read from
+# ("shared": staged in shared memory; "l2": read through the caches), as
+# the launch reports it. CPU calls never count.
+cm_inner_moments.launches = 0
+cm_inner_moments.launches_by_stream = Counter()
+cm_inner_moments.row_tables = Counter()
+
+
+@lru_cache(maxsize=1)
+def _cm_library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    path, _ = build_cuda(_SRC)
+    lib = ctypes.CDLL(str(path))
+    fn = lib.cm_inner_launch
+    fn.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_double] + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return lib

@@ -24,25 +24,36 @@ a uniform fill); the panel GL nodes give the totals and group splits come
 from the GL-node Lagrange interpolant (ops.panelsplit.lagrange_cumulants),
 so a row's cost does not grow with the group count.
 
-Plain float64 torch functions on the device of their arguments. The
-reference's lax.scan over chunks of 8 y-panels is a Python loop here whose
-chunk comes from a byte budget (chunk_for, panelsplit_chunk_for); chunks are
-independent, so the result does not depend on the chunk. The panel-split
-kernel's lax.scan over v_r panels is a Python loop too, and only the L+1
-(T, NY) accumulators live across its iterations.
+Float64 torch functions on the device of their arguments, except the
+production density: sab_density runs the hand-written CUDA kernel
+(csrc/freegas_sab.cu) on a CUDA tensor, one launch for every (row, y-node),
+and its plain torch version sab_density_ref (_sab_dens a chunk of y-panels
+at a time) on a CPU tensor; there is no fallback from one to the other.
+The reference's lax.scan over chunks of 8 y-panels is a Python loop in the
+plain paths whose chunk comes from a byte budget (chunk_for,
+panelsplit_chunk_for); chunks are independent, so the result does not
+depend on the chunk. The panel-split kernel's lax.scan over v_r panels is a
+Python loop too, and only the L+1 (T, NY) accumulators live across its
+iterations; it stays torch on every device, so selfcheck holds the CUDA
+kernel against independent code.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+from collections import Counter
+from functools import lru_cache
 from math import comb
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ndpp_tpu_torch.ops.continuum import CHUNK_BUDGET_BYTES
-from ndpp_tpu_torch.ops.legendre import gl_nodes_weights, legendre_all
+from ndpp_tpu_torch.ops.legendre import device_table, gl_nodes_weights, legendre_all
 from ndpp_tpu_torch.ops.panelsplit import lagrange_cumulants
+from ndpp_tpu_torch.utils.build import build_cuda
 
 # per-row outer v_r panel offsets of _pointwise_dens in units of 1/beta,
 # graded around v_r = v
@@ -84,7 +95,8 @@ _PW_LIVE_NODE_TENSORS = 14
 
 def chunk_for(rows: int, budget_bytes: int = CHUNK_BUDGET_BYTES) -> int:
     """y-panels per chunk so the chunk's live (T, chunk * NQ_G, U_PANELS,
-    NQ_U) float64 tensors stay inside `budget_bytes`: between 1 and all."""
+    NQ_U) float64 tensors stay inside `budget_bytes`: between 1 and all. It
+    bounds the plain path only: the CUDA kernel holds no such tensor."""
     per_panel = max(rows, 1) * NQ_G * U_PANELS * NQ_U * 8 * _LIVE_NODE_TENSORS
     return max(1, min(Y_PANELS, budget_bytes // per_panel))
 
@@ -124,11 +136,12 @@ def freegas_moments_sab(e, awr, kt, bounds, order: int, chunk: int = Y_PANELS):
     e: (T,) incident energies, eV; awr, kt: scalars or (T,); bounds: FINITE
     covering window (G+1,), ascending. Rows are normalized over the window,
     so each P0 row sums to 1 (a row with no mass in it is left unscaled).
-    chunk: y-panels evaluated at a time (chunk_for).
+    chunk: y-panels evaluated at a time by the plain path (chunk_for); the
+    CUDA kernel takes every y-node in one launch.
     """
-    v, awr, kt = torch.sqrt(e), _per_row(awr, e), _per_row(kt, e)
+    v, awr, kt = torch.sqrt(e).contiguous(), _per_row(awr, e).contiguous(), _per_row(kt, e).contiguous()
     return _outgoing_panelsplit(
-        e, v, awr, kt, bounds, order, NQ_G, NFILL_Y, chunk, lambda y: _sab_dens(y, v, awr, kt, order)
+        e, v, awr, kt, bounds, order, NQ_G, NFILL_Y, lambda pm, ph: sab_density(pm, ph, v, awr, kt, order, chunk)
     )
 
 
@@ -181,7 +194,34 @@ def freegas_moments_panelsplit(
             ladder, offs_c, xr, wr, xc, wc, order, nfill_r, nfill_c, ngeo_c,
         )
 
-    return _outgoing_panelsplit(e, v, awr, kt, bounds, order, nq_g, nfill_y, chunk, dens_fn)
+    return _outgoing_panelsplit(
+        e, v, awr, kt, bounds, order, nq_g, nfill_y, lambda pm, ph: _chunked_gvals(pm, ph, nq_g, order, chunk, dens_fn)
+    )
+
+
+def sab_u_edges(y, v, awr, kt):
+    """The sorted u-panel edges of _sab_dens at outgoing points y (T, NY):
+    (edges (T, NY, U_PANELS + 1), c = |beta_s|, beta_s)."""
+    tt, ny = y.shape
+    vv = v[:, None]
+    akt = (awr * kt)[:, None]
+    sq_akt = torch.sqrt(akt)
+    sq_a_kt = torch.sqrt(awr / kt)[:, None]
+    dy = torch.abs(y - vv)
+    sy = y + vv
+    beta_s = (y * y - vv * vv) / kt[:, None]  # signed energy transfer / kT
+    c = torch.abs(beta_s)
+    u_lo = torch.clamp_min(0.5 * (dy / sq_akt - sy * sq_a_kt), -_UCLIP)
+    u_hi = torch.clamp_max(0.5 * (sy / sq_akt - dy * sq_a_kt), _UCLIP)
+    u_hi = torch.maximum(u_hi, u_lo)
+    sc = torch.sqrt(c)
+    ulad = device_table(tuple(_SAB_ULAD), y.dtype, y.device)
+    clad = device_table(tuple(_SAB_CLAD), y.dtype, y.device)
+    lo, hi = u_lo[..., None], u_hi[..., None]
+    edges = torch.cat(
+        [lo, _clip(ulad.expand(tt, ny, ulad.shape[0]), lo, hi), _clip(sc[..., None] * clad, lo, hi), hi], dim=-1
+    )
+    return torch.sort(edges, dim=-1).values, c, beta_s
 
 
 def _sab_dens(y, v, awr, kt, order: int):
@@ -195,31 +235,13 @@ def _sab_dens(y, v, awr, kt, order: int):
     continuously).
     """
     dtype, dev = y.dtype, y.device
-    tt, ny = y.shape
     vv = v[:, None]
     akt = (awr * kt)[:, None]
-    sq_akt = torch.sqrt(akt)
-    sq_a_kt = torch.sqrt(awr / kt)[:, None]
-    dy = torch.abs(y - vv)
-    sy = y + vv
-    beta_s = (y * y - vv * vv) / kt[:, None]  # signed energy transfer / kT
-    c = torch.abs(beta_s)
-    u_lo = torch.clamp_min(0.5 * (dy / sq_akt - sy * sq_a_kt), -_UCLIP)
-    u_hi = torch.clamp_max(0.5 * (sy / sq_akt - dy * sq_a_kt), _UCLIP)
-    u_hi = torch.maximum(u_hi, u_lo)
+    edges, c, beta_s = sab_u_edges(y, v, awr, kt)  # (T, NY, P+1)
     denom = torch.clamp_min(2.0 * vv * y, 1e-30)
     m0 = (vv * vv + y * y) / denom
     m1 = akt / denom
-
-    sc = torch.sqrt(c)
-    ulad = torch.as_tensor(_SAB_ULAD, dtype=dtype, device=dev)
-    clad = torch.as_tensor(_SAB_CLAD, dtype=dtype, device=dev)
-    lo, hi = u_lo[..., None], u_hi[..., None]
-    edges = torch.cat(
-        [lo, _clip(ulad.expand(tt, ny, ulad.shape[0]), lo, hi), _clip(sc[..., None] * clad, lo, hi), hi], dim=-1
-    )
-    edges = torch.sort(edges, dim=-1).values  # (T, NY, P+1)
-    xq, wq = (torch.as_tensor(a, dtype=dtype, device=dev) for a in gl_nodes_weights(NQ_U))
+    xq, wq = (device_table(tuple(a), dtype, dev) for a in gl_nodes_weights(NQ_U))
     pm = 0.5 * (edges[..., 1:] + edges[..., :-1])
     ph = 0.5 * (edges[..., 1:] - edges[..., :-1])
     del edges
@@ -248,12 +270,12 @@ def _sab_dens(y, v, awr, kt, order: int):
     return dsig
 
 
-def _outgoing_panelsplit(e, v, awr, kt, bounds, order: int, nq_g: int, nfill_y: int, chunk: int, dens_fn):
+def _outgoing_panelsplit(e, v, awr, kt, bounds, order: int, nq_g: int, nfill_y: int, gvals_fn):
     """The outgoing-axis machinery of both kernels: y-panels at the
-    integrand's structure, the density at every panel GL node, `chunk` panels
-    at a time, group splits from the GL-node Lagrange interpolant, row
-    normalization. dens_fn maps y (T, NY) to a list of L+1 (T, NY) density
-    values."""
+    integrand's structure, the density at every panel GL node, group splits
+    from the GL-node Lagrange interpolant, row normalization. gvals_fn maps
+    the panels' mids and halves (T, NP) to g(y) = dF_l/dE' * 2y at every
+    panel GL node, (T, NP, nq_g, L+1)."""
     dtype, dev = e.dtype, e.device
     tt = e.shape[0]
     gamma = awr / (awr + 1.0)
@@ -279,19 +301,12 @@ def _outgoing_panelsplit(e, v, awr, kt, bounds, order: int, nq_g: int, nfill_y: 
     extra = torch.clamp(extra, sb[0], sb[-1])
     y_edges = torch.sort(torch.cat([fills[None, :].expand(tt, fills.shape[0]), extra], dim=1), dim=1).values
     npan = y_edges.shape[1] - 1
-    xg, wg = (torch.as_tensor(a, dtype=dtype, device=dev) for a in gl_nodes_weights(nq_g))
+    wg = torch.as_tensor(gl_nodes_weights(nq_g)[1], dtype=dtype, device=dev)
     pmid = 0.5 * (y_edges[:, 1:] + y_edges[:, :-1])  # (T, NP)
     phalf = 0.5 * (y_edges[:, 1:] - y_edges[:, :-1])
 
-    # --- g(y) = dF_l/dE' * 2y at every panel GL node, `chunk` panels at a time
-    gvals = e.new_empty((tt, npan, nq_g, order + 1))
-    for c0 in range(0, npan, chunk):
-        pm = pmid[:, c0 : c0 + chunk]
-        ph = phalf[:, c0 : c0 + chunk]
-        n = pm.shape[1]
-        y = (pm[:, :, None] + ph[:, :, None] * xg[None, None, :]).reshape(tt, n * nq_g)
-        vals = torch.stack(dens_fn(y), dim=-1) * (2.0 * y)[..., None]  # g(y) = dens * dE'/dy
-        gvals[:, c0 : c0 + n] = vals.reshape(tt, n, nq_g, order + 1)
+    # --- g(y) = dF_l/dE' * 2y at every panel GL node
+    gvals = gvals_fn(pmid, phalf)
 
     # --- cumulative integrals C_l(sb_g) at every group boundary
     cumul = lagrange_cumulants(y_edges, pmid, phalf, gvals, wg, sb, npan, nq_g)
@@ -299,6 +314,104 @@ def _outgoing_panelsplit(e, v, awr, kt, bounds, order: int, nq_g: int, nfill_y: 
     n_full = cumul[:, -1, 0]
     n_full = torch.where(n_full > 0, n_full, torch.ones_like(n_full))
     return out.transpose(1, 2) / n_full[:, None, None]
+
+
+def _chunked_gvals(pmid, phalf, nq_g: int, order: int, chunk: int, dens_fn):
+    """g(y) = dF_l/dE' * 2y at every GL node of the panels (pmid, phalf)
+    (T, NP), `chunk` panels at a time: (T, NP, nq_g, L+1). dens_fn maps y
+    (T, NY) to a list of L+1 (T, NY) density values."""
+    tt, npan = pmid.shape
+    xg = device_table(tuple(gl_nodes_weights(nq_g)[0]), pmid.dtype, pmid.device)
+    gvals = pmid.new_empty((tt, npan, nq_g, order + 1))
+    for c0 in range(0, npan, chunk):
+        pm = pmid[:, c0 : c0 + chunk]
+        ph = phalf[:, c0 : c0 + chunk]
+        n = pm.shape[1]
+        y = (pm[:, :, None] + ph[:, :, None] * xg[None, None, :]).reshape(tt, n * nq_g)
+        vals = torch.stack(dens_fn(y), dim=-1) * (2.0 * y)[..., None]  # g(y) = dens * dE'/dy
+        gvals[:, c0 : c0 + n] = vals.reshape(tt, n, nq_g, order + 1)
+    return gvals
+
+
+# ---------------------------------------------------------------------------
+# The production density on the card: the hand-written CUDA kernel
+# csrc/freegas_sab.cu and its plain version.
+
+MAX_ORDER = 10
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "freegas_sab.cu"
+
+
+def sab_density_ref(pmid, phalf, v, awr, kt, order: int, chunk: int = Y_PANELS):
+    """Plain torch version of the free-gas density kernel: _sab_dens times 2y
+    at every NQ_G-point GL node of the y-panels (pmid, phalf) (T, NP), `chunk`
+    panels at a time: (T, NP, NQ_G, L+1), what _outgoing_panelsplit stores."""
+    return _chunked_gvals(pmid, phalf, NQ_G, order, chunk, lambda y: _sab_dens(y, v, awr, kt, order))
+
+
+def _check_sab(pmid, phalf, v, awr, kt, order: int) -> None:
+    if not 0 <= order <= MAX_ORDER:
+        raise ValueError(f"sab_density: order must be in [0, {MAX_ORDER}], got {order}")
+    if pmid.dim() != 2 or phalf.shape != pmid.shape:
+        raise ValueError(f"sab_density: pmid and phalf must be one (T, NP) shape, got {tuple(pmid.shape)}, "
+                         f"{tuple(phalf.shape)}")
+    for name, x in (("pmid", pmid), ("phalf", phalf), ("v", v), ("awr", awr), ("kt", kt)):
+        if x.dtype != torch.float64:
+            raise TypeError(f"sab_density: {name} must be float64, got {x.dtype}")
+        if x.device != pmid.device:
+            raise ValueError(f"sab_density: {name} on {x.device}, pmid on {pmid.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"sab_density: {name} must be contiguous")
+        if name in ("v", "awr", "kt") and x.shape != pmid.shape[:1]:
+            raise ValueError(f"sab_density: {name} must be ({pmid.shape[0]},), got {tuple(x.shape)}")
+
+
+def sab_density(pmid, phalf, v, awr, kt, order: int, chunk: int = Y_PANELS):
+    """g(y) = dF_l/dE' * 2y at every GL node of the y-panels: (T, NP, NQ_G, L+1).
+
+    pmid/phalf: (T, NP) y-panel mids and halves; v = sqrt(E), awr, kt: (T,).
+    CUDA tensors launch the kernel on the current stream without
+    synchronising (chunk is not read); CPU tensors take sab_density_ref.
+    """
+    _check_sab(pmid, phalf, v, awr, kt, order)
+    if pmid.device.type == "cpu":
+        return sab_density_ref(pmid, phalf, v, awr, kt, order, chunk)
+    if pmid.device.type != "cuda":
+        raise ValueError(f"sab_density: unsupported device {pmid.device}")
+    tt, npan = pmid.shape
+    out = torch.empty((tt, npan, NQ_G, order + 1), dtype=torch.float64, device=pmid.device)
+    if tt == 0 or npan == 0:
+        return out
+    lib = _sab_library()
+    xg, _ = gl_nodes_weights(NQ_G)
+    xu, wu = gl_nodes_weights(NQ_U)
+    with torch.cuda.device(pmid.device):
+        stream = torch.cuda.current_stream(pmid.device).cuda_stream
+        rc = lib.freegas_sab_launch(
+            *(x.data_ptr() for x in (pmid, phalf, v, awr, kt)), tt, npan, NQ_G, order,
+            *(a.ctypes.data for a in (xg, xu, wu, _SAB_ULAD, _SAB_CLAD)), out.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"sab_density: kernel launch failed with cudaError {rc}")
+    sab_density.launches += 1
+    sab_density.launches_by_stream[stream] += 1
+    return out
+
+
+# Launches of the CUDA kernel since the last reset, in all and by the CUDA
+# stream that took them. CPU calls never count.
+sab_density.launches = 0
+sab_density.launches_by_stream = Counter()
+
+
+@lru_cache(maxsize=1)
+def _sab_library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    path, _ = build_cuda(_SRC)
+    lib = ctypes.CDLL(str(path))
+    fn = lib.freegas_sab_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7
+    fn.restype = ctypes.c_int
+    return lib
 
 
 def _pointwise_dens(

@@ -20,6 +20,15 @@ def gl_nodes_weights(n: int) -> tuple[np.ndarray, np.ndarray]:
     return x.astype(np.float64), w.astype(np.float64)
 
 
+@lru_cache(maxsize=256)
+def device_table(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A small constant table (GL nodes, a ladder) as a tensor on `device`,
+    made once per (values, dtype, device) and only read afterwards. The
+    plain kernel versions take their tables from here, so that a CUDA graph
+    can capture them: a copy from host memory during the capture would fail."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def legendre_all(x: torch.Tensor, order: int) -> torch.Tensor:
     """Stack [P_0(x), ..., P_order(x)] along a new LAST axis.
 

@@ -20,20 +20,15 @@ together with the group reduction after it.
 on a CUDA tensor, so the (T, L+1, S) intermediate never reaches device
 memory, and the plain torch version ``twobody_group_moments_ref`` (inner
 stage, then epilogue) on a CPU tensor; there is no fallback from one to the
-other. The kernel library is built with nvcc at first use into
-utils.build.build_dir() (build/ndpp_tpu_torch/ at the root of a source
-checkout, the per-user cache for an installed package), keyed by the
-source's hash, and loaded with ctypes.
+other. The kernel library is built with nvcc at first use by
+utils.build.build_cuda into utils.build.build_dir() (build/ndpp_tpu_torch/
+at the root of a source checkout, the per-user cache for an installed
+package), keyed by the source's hash, and loaded with ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from collections import Counter
 from functools import lru_cache
 from pathlib import Path
@@ -42,17 +37,14 @@ import torch
 
 from ndpp_tpu_torch.ops.legendre import gl_nodes_weights
 from ndpp_tpu_torch.ops.segment import segment_group_sum
-from ndpp_tpu_torch.utils.build import build_dir
+from ndpp_tpu_torch.utils.build import NVCC_FLAGS, build_cuda, build_dir
 
 MAX_ORDER = 10
 MAX_NQ = 64  # GL nodes the kernel's parameter block holds (kMaxNq)
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "twobody_inner.cu"
 _BUILD_DIR = build_dir()
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-]
+_NVCC_FLAGS = NVCC_FLAGS
 
 
 def twobody_inner_ref(mid, half, a_s, b_s, kin, order: int, nq: int) -> torch.Tensor:
@@ -172,42 +164,11 @@ twobody_group_moments.launches = 0
 twobody_group_moments.launches_by_stream = Counter()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and Path(root, "bin", "nvcc").exists():
-            return str(Path(root, "bin", "nvcc"))
-    raise RuntimeError("twobody_group_moments: nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
-
-
 def build() -> tuple[Path, float]:
     """Compile csrc/twobody_inner.cu for sm_90a unless a library built from
-    the same source bytes exists; returns (path, seconds spent building).
-    ptxas's report (registers, spills per kernel) is kept beside the library
-    as <library>.ptxas.txt."""
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = _BUILD_DIR / f"twobody_inner-{digest}.so"
-    if path.exists():
-        return path, 0.0
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)], capture_output=True, text=True, timeout=600
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"twobody_group_moments: nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    ptxas_report(path).write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, path)  # atomic: a concurrent builder never sees a partial file
-    return path, time.perf_counter() - t0
-
-
-def ptxas_report(path: Path) -> Path:
-    """Where build() keeps ptxas's report for the library at `path`."""
-    return path.with_name(f"{path.name}.ptxas.txt")
+    the same source bytes exists (utils.build.build_cuda); returns (path,
+    seconds spent building)."""
+    return build_cuda(_SRC, _NVCC_FLAGS)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -9,13 +9,16 @@ family drifts past the 1e-8 accuracy bar (BASELINE.json:5):
     2048-row tile, nq 16), with a probe batch that mixes smooth, step and
     forward-peaked pdfs, discrete-level kinematics (c1 != 0) on half the
     rows and AWR log-uniform in [0.999, 240];
-  - free-gas: the production scattering-law kernel (freegas_moments_sab)
-    against the structurally independent panel-split quadrature kernel
-    (freegas_moments_panelsplit) at the production 257-group window;
+  - free-gas: the production scattering-law kernel (freegas_moments_sab,
+    whose density is the hand-written CUDA kernel ops/freegas.sab_density on
+    the card) against the structurally independent panel-split quadrature
+    kernel (freegas_moments_panelsplit, torch on every device) at the
+    production 257-group window;
   - continuum: the production Lagrange group split at production quadrature
     against the boundary-edged panels split at higher quadrature, on rows
     that straddle the top group boundary, with a small-`a` probe and a
-    tabular-angle leg;
+    tabular-angle leg (on the card both run the inner integral through the
+    hand-written CUDA kernel ops/continuum.cm_inner_moments);
   - chi: the tabular collapse kernel against an exact host integral of the
     same piecewise-linear pdf.
 
@@ -300,8 +303,11 @@ def run(tile: int = PROD_TILE, order: int = PROD_ORDER, nq: int = PROD_NQ, devic
     (driver.resolve_device). On the CPU the two-body leg is reported as
     skipped, with its reason, and the families run."""
     from ndpp_tpu_torch.driver import resolve_device
+    from ndpp_tpu_torch.ops.continuum import cm_inner_moments
+    from ndpp_tpu_torch.ops.freegas import sab_density
 
     dev = resolve_device(device)
+    before = sab_density.launches, cm_inner_moments.launches
     out: dict = {"shape": {"tile": tile, "order": order, "groups": PROD_NG, "nq": nq}, "device": str(dev)}
     failed = []
     if dev.type == "cuda":
@@ -329,6 +335,9 @@ def run(tile: int = PROD_TILE, order: int = PROD_ORDER, nq: int = PROD_NQ, devic
         out[name] = r
         if not r["ok"]:
             failed.append(name)
+    # the hand-written free-gas and continuum kernels' launches (0 on the CPU)
+    out["sab_density_launches"] = sab_density.launches - before[0]
+    out["cm_inner_launches"] = cm_inner_moments.launches - before[1]
     out["failed"] = failed
     out["ok"] = not failed
     return out

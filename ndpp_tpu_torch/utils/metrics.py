@@ -36,7 +36,8 @@ class RunMetrics:
     # RunMetrics.span so a None metrics costs nothing.
     timers: PhaseTimers = field(default_factory=PhaseTimers, repr=False)
     # outer-panel chunk -> number of cm_moments_pointwise tiles dispatched
-    # with it (continuum_driver picks the chunk from a byte budget)
+    # with it (continuum_driver picks the chunk from a byte budget; only the
+    # plain CPU path reads it, the CUDA kernel takes a tile whole)
     continuum_chunks: Counter = field(default_factory=Counter, repr=False)
 
     def span(self, name: str):

@@ -14,8 +14,10 @@ uniform-lethargy-361 with the catch group), host wall up to a synchronise,
 in turns: alone, then while a second thread runs the writer's formatting
 loop into an in-memory buffer, then alone again. It prints one JSON line
 (also to --out) with the medians, their ratio, the torch calls one call
-makes (the profiler's aten ops on the CPU copy) and the device's name and
-power limit.
+makes on the run's device (the profiler's aten ops; on the card the free-gas
+density is one launch of the hand-written kernel, which is no aten op, so
+its launches per call are counted beside them), the same count for the
+plain path on the CPU, and the device's name and power limit.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def main() -> int:
 
     from ndpp_tpu_torch import groups
     from ndpp_tpu_torch.ops.continuum import CHUNK_BUDGET_BYTES
-    from ndpp_tpu_torch.ops.freegas import chunk_for, freegas_moments_sab
+    from ndpp_tpu_torch.ops.freegas import chunk_for, freegas_moments_sab, sab_density
 
     dev = torch.device(args.device)
     gpu = "cpu"
@@ -88,15 +90,22 @@ def main() -> int:
     th.join(timeout=60)
     alone += [one_call() for _ in range(args.reps)]
 
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        freegas_moments_sab(e.cpu(), 0.999167, 0.0253, window.cpu(), 5, chunk=chunk)
-    aten_ops = sum(x.count for x in prof.key_averages() if x.key.startswith("aten::"))
+    def aten_ops(e_, window_) -> int:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            freegas_moments_sab(e_, 0.999167, 0.0253, window_, 5, chunk=chunk)
+        return sum(x.count for x in prof.key_averages() if x.key.startswith("aten::"))
+
+    before = sab_density.launches
+    ops_here = aten_ops(e, window)
+    kernel_launches = sab_density.launches - before
+    ops_cpu = aten_ops(e.cpu(), window.cpu())
 
     row = {
         "device": str(dev), "gpu": gpu, "rows": args.rows, "reps": args.reps,
         "alone_s": statistics.median(alone), "beside_writer_s": statistics.median(beside),
         "ratio": statistics.median(beside) / statistics.median(alone),
-        "aten_ops_per_call": aten_ops, "switch_interval_s": sys.getswitchinterval(),
+        "aten_ops_per_call": ops_here, "kernel_launches_per_call": kernel_launches,
+        "aten_ops_per_call_cpu_plain": ops_cpu, "switch_interval_s": sys.getswitchinterval(),
         "alone_all_s": alone, "beside_writer_all_s": beside,
     }
     line = json.dumps(row)

@@ -16,16 +16,20 @@ the last; the largest idle gaps of the device inside that span, each with
 the events on both sides; the host wall up to the profiler's stop; the share
 of the device-to-host result copies; the run's phase seconds. It prints one
 JSON line (also written to --out, if given) with those numbers and the
-card's name and power limit. For the free-gas op it adds the device time of
-the kernels that freegas_moments_sab launched (the CUDA launches inside a
-profiler range around each call, matched to the kernels by their
-correlation ids), their count, its calls and rows, its share of the busy
-time, and its bound: the least time the card could take for the same work,
-the larger of the bytes it must move (each row's energy and the window read
-once, the (T, L+1, w+1) result written once) over the HBM rate and its
-float64 operations (per quadrature node: one exp, one sqrt and 30 other
-operations) over the peak float64 rate. It needs a CUDA card and exits
-non-zero without one.
+card's name and power limit. It names the port's three hand-written
+kernels in their own table (hand_kernels: device ms and launches of
+twobody_group_kernel, freegas_sab_kernel and cm_inner_kernel, summed over
+their template instances, beside each wrapper's launch count). For the
+free-gas op and the CM-continuum op it adds the device time of everything
+that freegas_moments_sab and cm_moments_pointwise launched (the CUDA
+launches inside a profiler range around each call, matched to the device
+events by their correlation ids), their kernel count and calls; for the
+free-gas op also its rows, its share of the busy time, and its bound: the
+least time the card could take for the same work, the larger of the bytes
+it must move (each row's energy and the window read once, the (T, L+1, w+1)
+result written once) over the HBM rate and its float64 operations (per
+quadrature node: one exp, one sqrt and 30 other operations) over the peak
+float64 rate. It needs a CUDA card and exits non-zero without one.
 
 --plan runs nothing on a device. It drives the same deck through the driver
 on the CPU with every device op replaced by a recorder that returns zeros of
@@ -35,7 +39,11 @@ x inner nodes) and the bytes of one (T, NW, SY, QY) float64 tensor per chunk,
 and for freegas_moments_sab its rows, chunks and quadrature nodes (rows x
 y-panels x nq_g x u-panels x nq_u) and the bytes of one (T, chunk x nq_g,
 u-panels, nq_u) float64 tensor: the sizes a prediction of the device time is
-reckoned from.
+reckoned from. The chunks and chunk tensors are the plain (CPU) path's; on
+the card each call is one kernel launch, and kernel_tiles lists, per call
+of either op, that launch: its kernel, rows, grid (rows x 128-thread
+blocks), and for cm_inner_kernel the bytes of a row's tables and whether
+they are staged in shared memory or read through L2.
 """
 
 from __future__ import annotations
@@ -56,6 +64,13 @@ import chip_smoke  # noqa: E402  (fixtures and decks)
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 FREEGAS_RANGE = "ndpp.freegas_moments_sab"  # profiler range around each free-gas call
+CM_RANGE = "ndpp.cm_moments_pointwise"  # profiler range around each CM-continuum call
+HAND_KERNELS = {  # device kernel name -> the wrapper that launches it
+    "twobody_group_kernel": "twobody_group_moments", "freegas_sab_kernel": "sab_density",
+    "cm_inner_kernel": "cm_inner_moments",
+}
+THREADS = 128  # threads per block of freegas_sab_kernel and cm_inner_kernel
+SMEM_BYTES_MAX = 232448  # the most dynamic shared memory an H100 block may hold (227 KB)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP64_PEAK_FLOPS_PER_S = 67e12  # H100 SXM peak float64 (tensor cores); 34e12 outside them
 FLOPS_PER_FREEGAS_NODE = 32  # exp, sqrt and 30 other float64 operations per (y, u) node
@@ -84,6 +99,20 @@ def freegas_work(e, bounds, order: int) -> dict:
     }
 
 
+def cm_row_table_bytes(ke: int, kmu: int, angular: str, energy: str) -> int:
+    """Bytes of one row's tables that cm_inner_launch (csrc/cm_pointwise.cu)
+    stages in shared memory when they fit in SMEM_BYTES_MAX: yk, the channel
+    payload and, for tabular angles, e_knots, mu_knots and mu_pdf. The launch
+    decides on the card; this copy of its rule serves the plan, which runs
+    without one."""
+    from ndpp_tpu_torch.ops import continuum as cont_ops
+
+    n = ke + (ke - 1) * cont_ops.payload_columns(angular, energy)
+    if angular == "tabular":
+        n += ke + kmu + ke * kmu
+    return 8 * n
+
+
 def plan(which: str) -> dict:
     """The deck's dispatch plan, from a CPU run whose device ops only record."""
     import torch
@@ -92,6 +121,7 @@ def plan(which: str) -> dict:
     from ndpp_tpu_torch.ops import continuum as cont_ops
 
     calls: dict[str, dict] = defaultdict(lambda: defaultdict(int))
+    kernel_tiles: list[dict] = []
 
     def count(name, rows, **more):
         c = calls[name]
@@ -119,6 +149,12 @@ def plan(which: str) -> dict:
         c = calls[f"cm_moments_pointwise[{angular},{energy}]"]
         c["chunk_tensor_bytes_max"] = max(c["chunk_tensor_bytes_max"], t * min(chunk, npan) * nq_w * sy * nq_y * 8)
         c.setdefault("shapes", set()).add((ke, ksel, kmu, npan, sy, nb))
+        row_bytes = cm_row_table_bytes(ke, kmu, angular, energy)
+        kernel_tiles.append({
+            "kernel": "cm_inner_kernel", "variant": [angular, energy, "window" if 0 < ksel < ke else "all knots"],
+            "rows": t, "outer_nodes": npan * nq_w, "grid": [t, -(-npan * nq_w // THREADS)], "threads": THREADS,
+            "row_table_bytes": row_bytes, "path": "shared" if row_bytes <= SMEM_BYTES_MAX else "l2",
+        })
         return e.new_zeros((t, order + 1, nb))
 
     def lab(e_knots, pdf, moms, bounds, order, nq=6, clamp=True):
@@ -147,6 +183,11 @@ def plan(which: str) -> dict:
         c["chunk_tensor_bytes_max"] = max(
             c["chunk_tensor_bytes_max"], e.shape[0] * chunk * fg_ops.NQ_G * fg_ops.U_PANELS * fg_ops.NQ_U * 8)
         c.setdefault("shapes", set()).add((e.shape[0], chunk, bounds.shape[0] - 1))
+        kernel_tiles.append({
+            "kernel": "freegas_sab_kernel", "rows": e.shape[0], "y_nodes": fg_ops.Y_PANELS * fg_ops.NQ_G,
+            "grid": [e.shape[0], -(-fg_ops.Y_PANELS * fg_ops.NQ_G // THREADS)], "threads": THREADS,
+            "path": "no shared memory",
+        })
         return e.new_zeros((e.shape[0], order + 1, bounds.shape[0] - 1))
 
     def thermal_cont(e_knots, pdf, am, bounds, order):
@@ -194,9 +235,13 @@ def plan(which: str) -> dict:
     ops = {}
     for name, c in sorted(calls.items()):
         ops[name] = {k: (sorted(v) if isinstance(v, set) else v) for k, v in c.items()}
+    launches = defaultdict(int)
+    for k in kernel_tiles:
+        launches[k["kernel"]] += 1
     return {
         "deck": which, "plan_only": True, "nuclides": metrics.nuclides_done, "moments": metrics.moments_computed,
         "cm_shapes_key": "(ke, ksel, kmu, outer panels, inner panels, G|B)", "ops": ops,
+        "kernel_launches_on_card": dict(launches), "kernel_tiles": kernel_tiles,
     }
 
 
@@ -257,32 +302,38 @@ def profile(which: str) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    from ndpp_tpu_torch import driver, freegas_driver
-    from ndpp_tpu_torch.ops import twobody_inner
-    from ndpp_tpu_torch.ops.twobody_inner import twobody_group_moments
+    from ndpp_tpu_torch import continuum_driver, driver, freegas_driver
 
-    twobody_inner.library()  # build the kernel now: nvcc's seconds are no idle gap of the deck
+    chip_smoke.build()  # build the kernels now: nvcc's seconds are no idle gap of the deck
+    wrappers = chip_smoke.kernel_wrappers()
     fg_calls = []
     fg_op = freegas_driver.freegas_moments_sab
+    cm_op = continuum_driver.cm_moments_pointwise
 
     def fg_ranged(e, awr, kt, bounds, order, chunk):
         fg_calls.append(freegas_work(e, bounds, order))
         with torch.profiler.record_function(FREEGAS_RANGE):
             return fg_op(e, awr, kt, bounds, order, chunk)
 
+    def cm_ranged(*args):
+        with torch.profiler.record_function(CM_RANGE):
+            return cm_op(*args)
+
     freegas_driver.freegas_moments_sab = fg_ranged
+    continuum_driver.cm_moments_pointwise = cm_ranged
     try:
         with tempfile.TemporaryDirectory(prefix="ndpp_profile_deck_") as work:
             work = Path(work)
             cfg = make_deck(which, work)
             cfg.device.profile = True
-            twobody_group_moments.launches = 0
+            chip_smoke.reset_counts()
             t0 = time.perf_counter()
             metrics = driver.run(cfg, device="cuda")
             wall = time.perf_counter() - t0
             events = json.loads((work / "torch_trace.json").read_text())["traceEvents"]
     finally:
         freegas_driver.freegas_moments_sab = fg_op
+        continuum_driver.cm_moments_pointwise = cm_op
     by_name: dict[str, float] = defaultdict(float)
     count: dict[str, int] = defaultdict(int)
     for e in events:
@@ -294,6 +345,12 @@ def profile(which: str) -> dict:
     h2d_ms = sum(v for k, v in by_name.items() if "HtoD" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:20]
     fg_ms, fg_kernels = ranged_device_time(events, FREEGAS_RANGE)
+    cm_ms, cm_kernels = ranged_device_time(events, CM_RANGE)
+    hand = {}
+    for kernel, wrapper in HAND_KERNELS.items():
+        names = [k for k in by_name if kernel in k]
+        hand[kernel] = {"device_ms": sum(by_name[k] for k in names), "device_launches": sum(count[k] for k in names),
+                        "wrapper_launches": wrappers[wrapper].launches}
     fg = None
     if fg_calls:
         nbytes = sum(c["bytes"] for c in fg_calls)
@@ -312,7 +369,8 @@ def profile(which: str) -> dict:
         "nuclides_done": metrics.nuclides_done,
         "quarantined": metrics.nuclides_quarantined,
         "moments": metrics.moments_computed,
-        "kernel_launches": twobody_group_moments.launches,
+        "kernel_launches": wrappers["twobody_group_moments"].launches,
+        "hand_kernels": hand,
         "device_events": sum(count.values()),
         "device_busy_ms": busy_ms,
         "device_span_ms": span_ms,  # first device event's start to the last one's end
@@ -327,6 +385,10 @@ def profile(which: str) -> dict:
         "phase_seconds": metrics.phase_seconds,
         "top_ms": [{"name": k, "ms": v, "count": count[k]} for k, v in top],
         "freegas_moments_sab": fg,
+        "cm_moments_pointwise": {"calls": sum(1 for e in events if e.get("cat") == "user_annotation"
+                                              and e.get("name") == CM_RANGE),
+                                 "device_ms": cm_ms, "kernel_launches": cm_kernels,
+                                 "share_of_busy": cm_ms / busy_ms if busy_ms else None},
     }
 
 

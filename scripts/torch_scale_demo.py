@@ -108,6 +108,8 @@ def run_passes(args, passes: list[str], resume: bool) -> int:
     import torch
 
     from ndpp_tpu_torch import driver
+    from ndpp_tpu_torch.ops.continuum import cm_inner_moments
+    from ndpp_tpu_torch.ops.freegas import sab_density
     from ndpp_tpu_torch.ops.twobody_inner import twobody_group_moments
     from ndpp_tpu_torch.utils import log as log_mod
 
@@ -117,7 +119,7 @@ def run_passes(args, passes: list[str], resume: bool) -> int:
     rc = 0
     for which in passes:
         cfg = make_cfg(args, xsdir, which, resume)
-        twobody_group_moments.launches = 0
+        twobody_group_moments.launches = sab_density.launches = cm_inner_moments.launches = 0
         t0 = time.perf_counter()
         m = driver.run(cfg, device=args.device)
         wall = time.perf_counter() - t0
@@ -130,6 +132,8 @@ def run_passes(args, passes: list[str], resume: bool) -> int:
             "moments_per_sec": m.moments_computed / max(wall, 1e-9),
             "padding_efficiency": m.padding_efficiency,
             "kernel_launches": twobody_group_moments.launches,
+            "sab_density_launches": sab_density.launches,
+            "cm_inner_launches": cm_inner_moments.launches,
             "device_mem_highwater_bytes": m.device_mem_highwater_bytes,
             "device": args.device,
             "device_name": device_name,

@@ -42,6 +42,7 @@ def old_inner_kernel(parent: Path, build_dir: Path):
     import torch
 
     from ndpp_tpu_torch.ops import twobody_inner as inner_mod
+    from ndpp_tpu_torch.utils.build import nvcc
     from ndpp_tpu_torch.ops.legendre import gl_nodes_weights
 
     src = parent / "ndpp_tpu_torch" / "csrc" / "twobody_inner.cu"
@@ -50,7 +51,7 @@ def old_inner_kernel(parent: Path, build_dir: Path):
     build_dir.mkdir(parents=True, exist_ok=True)
     lib_path = build_dir / "twobody_inner_parent.so"
     flags = [f for f in inner_mod._NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    subprocess.run([inner_mod._nvcc(), *flags, "-o", str(lib_path), str(src)], check=True, timeout=600)
+    subprocess.run([nvcc(), *flags, "-o", str(lib_path), str(src)], check=True, timeout=600)
     lib = ctypes.CDLL(str(lib_path))
     fn = lib.twobody_inner_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_void_p]

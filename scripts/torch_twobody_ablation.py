@@ -64,6 +64,7 @@ ABLATIONS = {
 
 def build_all(build_dir: Path) -> dict:
     from ndpp_tpu_torch.ops import twobody_inner as inner_mod
+    from ndpp_tpu_torch.utils.build import nvcc
 
     src = inner_mod._SRC.read_text()
     flags = [f for f in inner_mod._NVCC_FLAGS if f not in ("-Xptxas", "-v")]
@@ -77,7 +78,7 @@ def build_all(build_dir: Path) -> dict:
             text = text.replace(old, new)
         cu = build_dir / f"{name}.cu"
         cu.write_text(text)
-        cmd = [inner_mod._nvcc(), *flags, "-o", str(build_dir / f"{name}.so"), str(cu)]
+        cmd = [nvcc(), *flags, "-o", str(build_dir / f"{name}.so"), str(cu)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
     for name, proc in procs.items():  # one nvcc per source, all started together
         _, err = proc.communicate(timeout=600)

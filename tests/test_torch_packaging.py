@@ -31,7 +31,12 @@ from ndpp_tpu_torch.utils import log as log_mod
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-SOURCES = ["ndpp_tpu_torch/csrc/twobody_inner.cu", "ndpp_tpu_torch/native/ace_tokenizer.cpp"]
+SOURCES = [
+    "ndpp_tpu_torch/csrc/twobody_inner.cu",
+    "ndpp_tpu_torch/csrc/freegas_sab.cu",
+    "ndpp_tpu_torch/csrc/cm_pointwise.cu",
+    "ndpp_tpu_torch/native/ace_tokenizer.cpp",
+]
 
 
 class _Messages(logging.Handler):
