@@ -9,8 +9,12 @@ never jax or the reference package, and proves in one process that:
      no result); prints the card's name and power limit, torch/CUDA/nvcc;
   2. build: the three hand-written kernels (ndpp_tpu_torch/csrc/
      twobody_inner.cu, freegas_sab.cu, cm_pointwise.cu) build with nvcc for
-     sm_90a from the checkout's sources, one nvcc each, started together;
-     ptxas's registers, stack and spills per kernel instance are printed;
+     sm_90a from the checkout's sources, one library a kernel (the lane
+     groups G = 1, 2, 4, 8 of the other two are template instances in it),
+     three nvcc processes started together; each library's seconds, instance
+     count, register range and spill bytes are printed, and ptxas's
+     registers, stack and spills (with the warps per SM the registers allow)
+     for every two-body instance and the P5 instances of the others;
   3. kernel vs plain: at the bench shape (2048 rows, P5, 361 groups, 16 GL
      points; panels from the port's prologue on fe56 rows) the fused kernel
      agrees with its plain torch version (inner stage, then the group
@@ -24,17 +28,23 @@ never jax or the reference package, and proves in one process that:
   3b. free-gas kernel vs plain ([fgk] lines): one freegas_moments_sab
      call at the thermal deck's shape (256 rows of h1's grid below 400 kT at
      293.6 K, P5, the driver's covering window with its catch group) on the
-     card: the density kernel (sab_density) against its plain torch version
-     on the same y-panels, and the op's (T, L+1, G) result through the
-     kernel against the same op through the plain density, each within
-     |k - p| <= 1e-12 max_row |p|; kernel and plain version timed in turns
-     by CUDA-graph replays, beside their bound;
+     card, and one at the decks' own tile size (7 rows): the density kernel
+     (sab_density) against its plain torch version on the same y-panels,
+     and the op's (T, L+1, G) result through the kernel against the same op
+     through the plain density, each within |k - p| <= 1e-12 max_row |p|;
+     kernel and plain version timed in turns by CUDA-graph replays, beside
+     their bound, with the lanes per y-node G, the instance's registers and
+     the instruction floor (live nodes times the FP64-pipe instructions per
+     node of the compiled node loops, read from cuobjdump -sass, over the
+     FP64 pipe's issue rate);
   3c. CM-continuum kernel vs plain ([cmk] lines): cm_inner_moments on one
      tile each of the kalbach, law61cm (tabular angles, cross_edges) and
-     nbody preparations, 256 rows each as the continuum driver prepares
-     them (the deck's nq_w/nq_y, "lagrange" split, dense table), against
-     cm_inner_moments_ref within the same bound, with the tile's shared
-     memory path; timed and bounded the same way;
+     nbody preparations, 256 rows each and 16 rows each (the decks' tile
+     size) as the continuum driver prepares them (the deck's nq_w/nq_y,
+     "lagrange" split, dense table), against cm_inner_moments_ref within the
+     same bound, with the tile's lanes, registers and shared memory path;
+     timed, bounded and floored the same way; and two untimed check tiles
+     (200 mu knots; row tables read through L2);
   4. the two-body deck: ``driver.run(cfg, device="cuda")`` on a P5 /
      uniform-lethargy-361 deck over h1, fe56, o16 and two stress nuclides
      (two-body only; free-gas off; until the continuum deck joined, this
@@ -95,6 +105,7 @@ raises, which exits non-zero before either line is printed.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -121,6 +132,9 @@ THERMAL_RUN = {"freegas_for": [], "sab": THERMAL_SAB, "temperatures": THERMAL_TE
 BAND = 32  # per-row window width of the banded variant
 FREEGAS_ROWS, FREEGAS_TEMP = 256, 293.6  # the thermal deck's free-gas tile: h1's rows at 293.6 K
 CM_ROWS = 256  # rows of each CM-continuum tile (the continuum driver's tile)
+# the decks' own tiles (torch_profile_deck.py --plan: free-gas calls of 7-239
+# rows, CM calls of 1-15 rows), timed beside the 256-row ones
+FREEGAS_DECK_ROWS, CM_DECK_ROWS = 7, 16
 CM_FIXTURES = {"kalbach": ("kalbach", "tabular"), "law61cm": ("tabular", "tabular"), "nbody": ("isotropic", "nbody")}
 HAND_RTOL = 1e-12  # the new kernels vs plain: |k - p| <= HAND_RTOL * max over the row of |p|
 # Which kernel each deck must launch (every deck launches the two-body kernel)
@@ -165,39 +179,168 @@ def environment():
     return smi
 
 
-def build() -> dict:
-    """Build the three kernels, one nvcc each, all started together; load
-    them. Returns each kernel's build seconds and the wall of the three."""
+def ptxas_instances(path: Path) -> list[dict]:
+    """Each kernel instance of a library's ptxas report (build_cuda keeps it
+    beside the library): kernel name, template arguments, registers, stack
+    frame and spill bytes."""
     import re
+
+    from ndpp_tpu_torch.utils.build import ptxas_report
+
+    out, own = [], False
+    for line in ptxas_report(path).read_text().splitlines():
+        entry = re.search(r"Compiling entry function '(\S*?(twobody_group_kernel|freegas_sab_kernel|cm_inner_kernel)"
+                          r"I(.*?)EEv\S*)'", line)
+        props = re.search(r"Function properties for (\S+)", line)
+        if entry:  # template arguments: two-body <L, nq>, free-gas <L, G>, continuum <angular, nbody, window, LB, G>
+            out.append({"kernel": entry.group(2), "args": [int(a) for a in re.findall(r"L[ib](\d+)E", entry.group(3))],
+                        "registers": None, "stack": 0, "spill_bytes": 0, "mangled": entry.group(1)})
+        elif props:  # the entry's own frame, or a subroutine's (its spills count too)
+            own = bool(out) and props.group(1) == out[-1]["mangled"]
+        elif out and "spill" in line:
+            nums = [int(n) for n in re.findall(r"(\d+) bytes", line)]
+            if own:
+                out[-1]["stack"] = nums[0]
+            out[-1]["spill_bytes"] += sum(nums[1:])
+        elif out and "Used" in line:
+            out[-1]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+def resident_warps(registers: int, threads: int = 128) -> int:
+    """Warps of `threads`-thread blocks an H100 SM holds at this register count
+    (registers are allocated 8 a thread at a time; 64 warps at most)."""
+    per_thread = -(-registers // 8) * 8
+    return min(65536 // (per_thread * threads), 2048 // threads) * threads // 32
+
+
+def build() -> dict:
+    """Build the three kernel libraries, one nvcc each, all started together;
+    load them. Prints each library's seconds and ptxas's registers and spills
+    (every instance of the two-body kernel, a summary and the P5 instances
+    of the others). Returns {"wall_s", kernel: seconds, "libraries": {kernel:
+    path}}."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ndpp_tpu_torch.ops import continuum as cont_ops
     from ndpp_tpu_torch.ops import freegas as fg_ops
     from ndpp_tpu_torch.ops import twobody_inner as inner_mod
-    from ndpp_tpu_torch.utils.build import build_cuda, ptxas_report
+    from ndpp_tpu_torch.utils.build import build_cuda
 
     t0 = time.perf_counter()
-    sources = {"twobody_group_moments": (inner_mod._SRC, inner_mod._NVCC_FLAGS),
-               "sab_density": (fg_ops._SRC,), "cm_inner_moments": (cont_ops._SRC,)}
-    with ThreadPoolExecutor(len(sources)) as ex:
-        futures = {name: ex.submit(build_cuda, *args) for name, args in sources.items()}
-        built = {name: f.result() for name, f in futures.items()}
+    libs = {"twobody_group_moments": (inner_mod._SRC, inner_mod._NVCC_FLAGS),
+            "sab_density": (fg_ops._SRC,), "cm_inner_moments": (cont_ops._SRC,)}
+    with ThreadPoolExecutor(len(libs)) as ex:
+        futures = {key: ex.submit(build_cuda, *args) for key, args in libs.items()}
+        built = {key: f.result() for key, f in futures.items()}
     wall = time.perf_counter() - t0
     inner_mod.library()
     fg_ops._sab_library()
     cont_ops._cm_library()
-    for kernel, (path, seconds) in built.items():
-        phase("build", f"{kernel}: {path.relative_to(ROOT)} built in {seconds:.2f} s")
-        name = "?"
-        for line in ptxas_report(path).read_text().splitlines():
-            entry = re.search(r"Compiling entry function .*?(twobody_group_kernel|freegas_sab_kernel|cm_inner_kernel)"
-                              r"I(.*?)EEv", line)
-            if entry:  # template arguments: two-body <L, nq>, free-gas <L>, continuum <angular, nbody, window>
-                name = f"{entry.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', entry.group(2)))}>"
-            elif "spill" in line or "Used" in line:
-                phase("build", f"ptxas {name}: {line.strip()}")
-    phase("build", f"three nvcc processes in parallel: wall {wall:.2f} s")
-    return {"wall_s": wall, **{name: seconds for name, (_, seconds) in built.items()}}
+    for kernel, (path, secs) in built.items():
+        inst = ptxas_instances(path)
+        spills = sum(i["spill_bytes"] for i in inst)
+        regs = [i["registers"] for i in inst]
+        phase("build", f"{kernel}: {path.relative_to(ROOT)} built in {secs:.2f} s, {len(inst)} instances, "
+              f"registers {min(regs)}-{max(regs)}, spill bytes {spills} in all")
+        for i in inst:
+            hot = (i["kernel"] == "twobody_group_kernel" or (i["kernel"] == "freegas_sab_kernel" and i["args"][0] == 5)
+                   or (i["kernel"] == "cm_inner_kernel" and i["args"][3] == 5))
+            if hot or i["spill_bytes"]:
+                phase("build", f"ptxas {i['kernel']}<{','.join(map(str, i['args']))}>: {i['registers']} registers "
+                      f"({resident_warps(i['registers'])} warps per SM by registers), stack {i['stack']} B, "
+                      f"spills {i['spill_bytes']} B")
+    phase("build", f"{len(built)} nvcc processes in parallel: wall {wall:.2f} s")
+    return {"wall_s": wall, **{k: secs for k, (_, secs) in built.items()},
+            "libraries": {k: path for k, (path, _) in built.items()}}
+
+
+FP64_OPS = ("DFMA", "DADD", "DMUL", "DMNMX", "DSETP")  # the FP64 pipe's instructions
+FP64_INSTR_PER_S = 132 * 64 * 1.98e9  # H100 SXM: 64 FP64 lanes per SM, 132 SMs, 1.98 GHz boost clock
+
+
+def cuobjdump() -> str | None:
+    """The toolkit's cuobjdump (beside nvcc), else triton's copy, else None."""
+    import shutil
+
+    from ndpp_tpu_torch.utils.build import nvcc
+
+    here = Path(nvcc()).parent / "cuobjdump"
+    if here.exists():
+        return str(here)
+    try:
+        import triton
+
+        alt = Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump"
+        if alt.exists():
+            return str(alt)
+    except ImportError:
+        pass
+    return shutil.which("cuobjdump")
+
+
+def sass_loops(path: Path, kernel: str, args: list[int]) -> list[dict] | None:
+    """The innermost loops of one kernel instance in `cuobjdump -sass` of its
+    library, most FP64-pipe instructions first: per loop the FP64_OPS
+    instructions of one iteration ("fp64") and its MUFU.RSQ64H and
+    MUFU.RCP64H ("rsq", "rcp"); None without cuobjdump. A loop runs from the
+    target of a backward branch to that branch; innermost loops hold no
+    other. Instructions of called subroutines (the slow paths of divisions
+    and square roots, a pow that is not inlined) are not counted."""
+    tool = cuobjdump()
+    if tool is None:
+        return None
+    return sass_text_loops(sass_text(tool, path), kernel, args)
+
+
+@functools.lru_cache(maxsize=4)
+def sass_text(tool: str, path: Path) -> str:
+    """`cuobjdump -sass` of a library, dumped once per library."""
+    return subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True, timeout=300, check=True).stdout
+
+
+def sass_text_loops(text: str, kernel: str, args: list[int]) -> list[dict]:
+    """sass_loops on the text of `cuobjdump -sass`."""
+    import re
+
+    want = "I" + "".join(f"L{'b' if kernel == 'cm_inner_kernel' and k in (1, 2) else 'i'}{a}E"
+                         for k, a in enumerate(args)) + "EEv"
+    body, on = [], False
+    for line in text.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            on = kernel in head.group(1) and want in head.group(1)
+            continue
+        if on:
+            body.append(line)
+    if not body:
+        raise RuntimeError(f"no SASS for {kernel}<{args}>")
+    label_at, pending, instrs = {}, [], []
+    for line in body:
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if ins:
+            addr = int(ins.group(1), 16)
+            label_at.update({lab: addr for lab in pending})
+            pending = []
+            instrs.append((addr, re.sub(r"^@!?U?P\w+\s+", "", ins.group(2))))
+    loops = []
+    for addr, txt in instrs:
+        br = re.match(r"BRA(?:\.\w+)*\s+(?:!?U?P\w+,\s*)?`?\(?(\.L_x_\d+|0x[0-9a-f]+)", txt)
+        if br:
+            target = label_at.get(br.group(1)) if br.group(1).startswith(".L") else int(br.group(1), 16)
+            if target is not None and target < addr:  # backward; the self-branch that ends a function is no loop
+                loops.append((target, addr))
+    inner = [lp for lp in loops if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+    out = []
+    for lo, hi in inner:
+        ops = [t.split()[0] for a, t in instrs if lo <= a <= hi]
+        out.append({"fp64": sum(1 for o in ops if o.split(".")[0] in FP64_OPS),
+                    "rsq": ops.count("MUFU.RSQ64H"), "rcp": ops.count("MUFU.RCP64H")})
+    return sorted(out, key=lambda d: -d["fp64"])
 
 
 def fe56_preps():
@@ -400,8 +543,8 @@ def row_rel_err(k, p) -> float:
     return float(((k - p).abs() / scale).max())
 
 
-def freegas_inputs(device):
-    """The thermal deck's free-gas tile: FREEGAS_ROWS of h1's moment-grid
+def freegas_inputs(device, n_rows: int = FREEGAS_ROWS):
+    """The thermal deck's free-gas tile: n_rows of h1's moment-grid
     rows below the free-gas cutoff at FREEGAS_TEMP (log-evenly sampled where
     there are more), and the driver's covering window: the groups reachable
     from thermal energies in a power-of-two bucket, behind the catch group
@@ -419,7 +562,7 @@ def freegas_inputs(device):
     cutoff = RunConfig().thermal_cutoff_kt * kt
     e_grid = unionize.moment_grid(nuc.energy)
     rows = e_grid[e_grid < cutoff]
-    e = rows[np.round(np.linspace(0, rows.size - 1, FREEGAS_ROWS)).astype(int)]
+    e = rows[np.round(np.linspace(0, rows.size - 1, n_rows)).astype(int)]
     gs = groups.get(f"uniform-lethargy-{KERNEL_SHAPE['groups']}")
     gamma, beta, vmax = nuc.awr / (nuc.awr + 1.0), np.sqrt(nuc.awr / kt), np.sqrt(cutoff)
     e_reach = 1.5 * (vmax + 2.0 * gamma * (vmax + 8.0 / beta)) ** 2  # as freegas_driver.apply_freegas
@@ -447,74 +590,132 @@ def freegas_bound(pm, ph, v, awr, kt, order: int) -> tuple[float, str, dict]:
 
     t, npan = pm.shape
     xg = torch.as_tensor(gl_nodes_weights(fg.NQ_G)[0], device=pm.device)
-    live = 0
+    ulad = torch.as_tensor(fg._SAB_ULAD, device=pm.device)
+    live = table = 0
     for c0 in range(0, npan, 4):  # a few panels at a time: (T, 4 x NQ_G, 21) edges
         y = (pm[:, c0 : c0 + 4, None] + ph[:, c0 : c0 + 4, None] * xg).reshape(t, -1)
         edges = fg.sab_u_edges(y, v, awr, kt)[0]
-        live += int((edges[..., 1:] > edges[..., :-1]).sum())
+        e0, e1 = edges[..., :-1], edges[..., 1:]
+        alive = e1 > e0
+        live += int(alive.sum())
+        # the kernel's table panels: [ULAD[k], ULAD[k+1]], both edges the ladder's own values
+        k = torch.searchsorted(ulad, e0).clamp_(max=ulad.numel() - 2)
+        table += int((alive & (ulad[k] == e0) & (ulad[k + 1] == e1)).sum())
     nodes = live * fg.NQ_U
     per_node = 20 + (2 if order >= 1 else 0) + 6 * max(order - 1, 0)
     nbytes = 8 * (2 * t * npan + 3 * t + t * npan * fg.NQ_G * (order + 1))
     flops = nodes * per_node
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP64_FLOPS_PER_S
-    info = {"bytes": nbytes, "flops": flops, "live_u_panels": live, "u_panels": t * npan * fg.NQ_G * fg.U_PANELS}
+    info = {"bytes": nbytes, "flops": flops, "live_u_panels": live, "table_u_panels": table,
+            "u_panels": t * npan * fg.NQ_G * fg.U_PANELS, "nodes": nodes, "table_nodes": table * fg.NQ_U}
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", info
 
 
-def freegas_kernel_phase(smi: str) -> dict:
+def instance(built: dict, kernel: str, args: list[int]) -> tuple[Path, dict]:
+    """The library of `kernel` and its ptxas entry for the template arguments `args`."""
+    path = built["libraries"][kernel]
+    name = {"sab_density": "freegas_sab_kernel", "cm_inner_moments": "cm_inner_kernel"}[kernel]
+    return path, next(i for i in ptxas_instances(path) if i["kernel"] == name and i["args"] == args)
+
+
+def node_floor(path: Path, kernel: str, args: list[int], nodes: dict) -> dict:
+    """The FP64-pipe instructions per node of the compiled node loops (SASS of
+    the G = 1 instance, whose node loops run one node a lane at a time) and
+    the least time the FP64 pipe takes to issue them for `nodes` ({loop:
+    node count}; free-gas: "exp" and "table", the loops holding one rsqrt a
+    node, the table's the cheaper; CM: "node", the innermost loop with the
+    most FP64 instructions). {"sass": None} without cuobjdump."""
+    try:
+        loops = sass_loops(path, kernel, args)
+    except (OSError, RuntimeError, subprocess.SubprocessError) as exc:
+        return {"sass": None, "note": f"cuobjdump -sass failed: {exc}"}
+    if loops is None:
+        return {"sass": None, "note": "the toolkit has no cuobjdump"}
+    if "table" in nodes:
+        per = sorted((lp["fp64"] / lp["rsq"] for lp in loops if lp["rsq"]), reverse=True)
+        per_node = {"exp": per[0], "table": per[-1]} if per else None
+    else:
+        per_node = {"node": loops[0]["fp64"]} if loops else None
+    if per_node is None:
+        return {"sass": None, "note": "no node loop found in the SASS", "innermost_loops": loops[:6]}
+    instr = sum(nodes[k] * per_node[k] for k in nodes)
+    return {"fp64_per_node": per_node, "innermost_loops": loops[:6], "nodes": nodes,
+            "floor_ms": instr / FP64_INSTR_PER_S * 1e3}
+
+
+def freegas_kernel_phase(smi: str, built: dict) -> dict:
     """The free-gas density kernel against its plain version at the thermal
-    deck's shape, and the op through each; timings and bound."""
+    deck's 256-row shape, and the op through each; then on a deck-size tile
+    of FREEGAS_DECK_ROWS rows; timings, lanes, registers, bound and
+    instruction floor of each."""
     import torch
 
     from ndpp_tpu_torch.ops import freegas as fg
 
     dev = torch.device("cuda", 0)
     order = KERNEL_SHAPE["order"]
-    e, awr, kt, window = freegas_inputs(dev)
-    chunk = fg.chunk_for(e.shape[0])
-    v = torch.sqrt(e).contiguous()
-    a_r, k_r = fg._per_row(awr, e).contiguous(), fg._per_row(kt, e).contiguous()
-    panels = {}
+    res = {"tiles": {}, "lanes": {}}
+    for label, n_rows in ((f"{FREEGAS_ROWS} rows", FREEGAS_ROWS), (f"{FREEGAS_DECK_ROWS} rows", FREEGAS_DECK_ROWS)):
+        e, awr, kt, window = freegas_inputs(dev, n_rows)
+        chunk = fg.chunk_for(e.shape[0])
+        v = torch.sqrt(e).contiguous()
+        a_r, k_r = fg._per_row(awr, e).contiguous(), fg._per_row(kt, e).contiguous()
+        panels = {}
 
-    def plain_op():
-        def gvals(pm, ph):
-            panels.update(pm=pm, ph=ph)
-            return fg.sab_density_ref(pm, ph, v, a_r, k_r, order, chunk)
+        def plain_op():
+            def gvals(pm, ph):
+                panels.update(pm=pm, ph=ph)
+                return fg.sab_density_ref(pm, ph, v, a_r, k_r, order, chunk)
 
-        return fg._outgoing_panelsplit(e, v, a_r, k_r, window, order, fg.NQ_G, fg.NFILL_Y, gvals)
+            return fg._outgoing_panelsplit(e, v, a_r, k_r, window, order, fg.NQ_G, fg.NFILL_Y, gvals)
 
-    ref_op = plain_op()
-    pm, ph = panels["pm"], panels["ph"]
-    reset_counts()
-    out_op = fg.freegas_moments_sab(e, awr, kt, window, order, chunk=chunk)
-    dens = fg.sab_density(pm, ph, v, a_r, k_r, order)
-    torch.cuda.synchronize()
-    launches = fg.sab_density.launches
-    ref = fg.sab_density_ref(pm, ph, v, a_r, k_r, order, chunk)
-    err_d, err_op = row_rel_err(dens, ref), row_rel_err(out_op, ref_op)
-    phase("fgk", f"sab_density T,NP={tuple(pm.shape)} -> {tuple(dens.shape)} L={order}, one launch of grid "
-          f"({pm.shape[0]}, {-(-pm.shape[1] * fg.NQ_G // 128)}) x 128 threads: max |k-p| / max_row|p| = {err_d:.3e}; "
-          f"freegas_moments_sab -> {tuple(out_op.shape)} through the kernel vs through the plain density: {err_op:.3e} "
-          f"(limit {HAND_RTOL:g}); launches {launches}")
-    if launches != 2 or not (err_d <= HAND_RTOL and err_op <= HAND_RTOL) or not bool(torch.isfinite(dens).all()):
-        raise RuntimeError(f"the free-gas kernel disagrees with its plain version ({err_d:.3e}, {err_op:.3e}) "
-                           f"or did not launch ({launches})")
-    ms = time_turns({
-        "kernel": lambda: fg.sab_density(pm, ph, v, a_r, k_r, order),
-        "plain": lambda: fg.sab_density_ref(pm, ph, v, a_r, k_r, order, chunk),
-    }, n=5, reps=3)
-    bound_ms, bound_by, info = freegas_bound(pm, ph, v, a_r, k_r, order)
-    phase("fgk", f"device time per call, median of 2 x 3 graph replays of 5 calls, in turns: kernel {ms['kernel']:.5f} ms, "
-          f"plain torch {ms['plain']:.5f} ms (chunk {chunk} of {fg.Y_PANELS} y-panels); bound {bound_ms:.5f} ms "
-          f"({bound_by}: {json.dumps(info)}) on {smi}")
-    return {"max_abs_err": float((dens - ref).abs().max()), "max_rel_row_err": max(err_d, err_op), "ms": ms["kernel"],
-            "plain_ms": ms["plain"], "bound_ms": bound_ms, "bound_by": bound_by, "shape": list(dens.shape)}
+        ref_op = plain_op()
+        pm, ph = panels["pm"], panels["ph"]
+        reset_counts()
+        out_op = fg.freegas_moments_sab(e, awr, kt, window, order, chunk=chunk)
+        dens = fg.sab_density(pm, ph, v, a_r, k_r, order)
+        torch.cuda.synchronize()
+        launches = fg.sab_density.launches
+        g = next(iter(fg.sab_density.lane_groups))
+        ref = fg.sab_density_ref(pm, ph, v, a_r, k_r, order, chunk)
+        err_d, err_op = row_rel_err(dens, ref), row_rel_err(out_op, ref_op)
+        path, ptx = instance(built, "sab_density", [order, g])
+        phase("fgk", f"sab_density {label} T,NP={tuple(pm.shape)} -> {tuple(dens.shape)} L={order}, one launch of grid "
+              f"({pm.shape[0]}, {-(-pm.shape[1] * fg.NQ_G * g // 128)}) x 128 threads, G = {g} lanes per y-node, "
+              f"{ptx['registers']} registers ({resident_warps(ptx['registers'])} warps per SM), fixed-ladder table in "
+              f"shared memory: max |k-p| / max_row|p| = {err_d:.3e}; freegas_moments_sab -> {tuple(out_op.shape)} "
+              f"through the kernel vs through the plain density: {err_op:.3e} (limit {HAND_RTOL:g}); launches {launches}")
+        if launches != 2 or not (err_d <= HAND_RTOL and err_op <= HAND_RTOL) or not bool(torch.isfinite(dens).all()):
+            raise RuntimeError(f"the free-gas kernel disagrees with its plain version ({err_d:.3e}, {err_op:.3e}) "
+                               f"or did not launch ({launches})")
+        ms = time_turns({
+            "kernel": lambda: fg.sab_density(pm, ph, v, a_r, k_r, order),
+            "plain": lambda: fg.sab_density_ref(pm, ph, v, a_r, k_r, order, chunk),
+        }, n=5, reps=3)
+        bound_ms, bound_by, info = freegas_bound(pm, ph, v, a_r, k_r, order)
+        floor = node_floor(path, "freegas_sab_kernel", [order, 1],
+                           {"table": info["table_nodes"], "exp": info["nodes"] - info["table_nodes"]})
+        phase("fgk", f"{label}: device time per call, median of 2 x 3 graph replays of 5 calls, in turns: kernel "
+              f"{ms['kernel']:.5f} ms, plain torch {ms['plain']:.5f} ms "
+              f"(chunk {chunk} of {fg.Y_PANELS} y-panels); bound {bound_ms:.5f} ms ({bound_by}: {json.dumps(info)}); "
+              f"instruction floor {json.dumps(floor)} on {smi}")
+        tile = {"shape": list(dens.shape), "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound_ms,
+                "bound_by": bound_by, "lanes": g, "registers": ptx["registers"],
+                "warps_per_sm": resident_warps(ptx["registers"]), "floor": floor,
+                "max_abs_err": float((dens - ref).abs().max()), "max_rel_row_err": max(err_d, err_op)}
+        res["tiles"][label] = tile
+        res["lanes"][label] = g
+    main = res["tiles"][f"{FREEGAS_ROWS} rows"]
+    res.update({k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")})
+    res["max_abs_err"] = max(t["max_abs_err"] for t in res["tiles"].values())
+    res["max_rel_row_err"] = max(t["max_rel_row_err"] for t in res["tiles"].values())
+    return res
 
 
-def cm_tiles(device) -> dict:
-    """cm_inner_moments' operands for one CM_ROWS-row tile of each
+def cm_tiles(device, n_rows: int = CM_ROWS) -> dict:
+    """cm_inner_moments' operands for one n_rows-row tile of each
     preparation in CM_FIXTURES, as the continuum driver prepares a tile:
-    the reaction's rows from one below its threshold (cycled up to CM_ROWS),
+    the reaction's rows from one below its threshold (cycled up to n_rows),
     knot tables padded to their power-of-two bucket, the driver's ksel rung,
     its quadrature (nq_w/nq_y 12/8 with cross_edges for tabular angles, else
     10/7), the "lagrange" split, P5 on the dense 361-group table, and the
@@ -549,7 +750,7 @@ def cm_tiles(device) -> dict:
         rxn = next(r for r in nuc.scattering_reactions(include_fission=False) if r.energy_dists)
         sig = np.interp(e_grid, nuc.energy, nuc.sigma_on_grid(rxn))
         rows = e_grid[max(int(np.nonzero(sig > 0)[0][0]) - 1, 0):]
-        rows = rows[np.arange(CM_ROWS) % rows.size]
+        rows = rows[np.arange(n_rows) % rows.size]
         prep = prepare_continuum(nuc, rxn, rxn.energy_dists[0], rows, order)
         tab = angular == "tabular"
         nq_w, nq_y = (12, 8) if tab else (10, 7)
@@ -560,9 +761,9 @@ def cm_tiles(device) -> dict:
             ksel = quantize_ksel(_window_knot_bound(prep.e, nuc.awr, prep.e_knots), k16)
         kmu = prep.mu_knots.size if tab else 0
         npan = cont_ops.outer_panel_count(k16, gs.ng, angular, kmu, "lagrange", tab)
-        chunk = cont_ops.chunk_for(CM_ROWS, nq_w, nq_y, cont_ops.inner_panel_count(k16, ksel, angular, kmu), npan)
+        chunk = cont_ops.chunk_for(n_rows, nq_w, nq_y, cont_ops.inner_panel_count(k16, ksel, angular, kmu), npan)
 
-        def capture(*args, chunk=None, key=fixture):
+        def capture(*args, chunk=None, key=fixture, lanes=None):
             tiles[key] = (args, chunk)
             raise Captured
 
@@ -645,10 +846,12 @@ def cm_check_tile(device, t: int, nw: int, ke: int, kmu: int, seed: int):
             "tabular", "tabular", 0)
 
 
-def cm_kernel_phase(smi: str) -> dict:
+def cm_kernel_phase(smi: str, built: dict) -> dict:
     """The CM inner kernel against its plain version on one captured tile of
-    each CM preparation, timings and bound summed over the three tiles; and,
-    untimed, on two synthetic tiles beyond the fixtures (cm_check_tile)."""
+    each CM preparation at CM_ROWS rows (timings and bound summed over these
+    three tiles, as for the first kernel) and at the decks' CM_DECK_ROWS rows, each with
+    its lanes, registers, bound and instruction floor; and, untimed, on two
+    synthetic tiles beyond the fixtures (cm_check_tile)."""
     import torch
 
     from ndpp_tpu_torch.ops import continuum as cont_ops
@@ -656,57 +859,73 @@ def cm_kernel_phase(smi: str) -> dict:
     dev = torch.device("cuda", 0)
 
     def check(name, args, chunk, want_path=None):
-        """One launch against the plain version; returns (kernel result, plain result, error, path)."""
+        """One launch against the plain version; returns (kernel result, plain
+        result, error, path, lanes, ptxas entry, library path)."""
         reset_counts()
         got = cont_ops.cm_inner_moments(*args)
         torch.cuda.synchronize()
         launches = cont_ops.cm_inner_moments.launches
         where = next(iter(cont_ops.cm_inner_moments.row_tables))
+        g = next(iter(cont_ops.cm_inner_moments.lane_groups))
         ref = cont_ops.cm_inner_moments_ref(*args, chunk=chunk)
         err = row_rel_err(got, ref)
         w, yk, mu_knots = args[0], args[2], args[5]
         kmu = 0 if mu_knots is None else mu_knots.shape[0]
-        phase("cmk", f"cm_inner_moments {name} [{args[12]}, {args[13]}, ksel {args[14]}] T,NW={tuple(w.shape)} "
-              f"KE={yk.shape[1]} KMU={kmu} L={args[10]} nq_y={args[11]}: one launch of grid ({w.shape[0]}, "
-              f"{-(-w.shape[1] // 128)}) x 128 threads, row tables read from {where} (the launch's report); "
+        order, angular, energy, ksel = args[10], args[12], args[13], args[14]
+        targs = [cont_ops.ANGULAR.index(angular), int(energy == "nbody"), int(0 < ksel < yk.shape[1]),
+                 cont_ops.cm_order_bucket(order), g]
+        path, ptx = instance(built, "cm_inner_moments", targs)
+        phase("cmk", f"cm_inner_moments {name} [{angular}, {energy}, ksel {ksel}] T,NW={tuple(w.shape)} "
+              f"KE={yk.shape[1]} KMU={kmu} L={order} nq_y={args[11]}: one launch of grid ({w.shape[0]}, "
+              f"{-(-w.shape[1] * g // 128)}) x 128 threads, G = {g} lanes per outer node, instance <"
+              f"{','.join(map(str, targs))}> {ptx['registers']} registers ({resident_warps(ptx['registers'])} warps "
+              f"per SM by registers), row tables read from {where} (the launch's report); "
               f"max |k-p| / max_row|p| = {err:.3e} (limit {HAND_RTOL:g}); launches {launches}")
         if launches != 1 or err > HAND_RTOL or not bool(torch.isfinite(got).all()):
             raise RuntimeError(f"{name}: the CM kernel disagrees with its plain version ({err:.3e}) "
                                f"or did not launch ({launches})")
         if want_path is not None and where != want_path:
             raise RuntimeError(f"{name}: the row tables were read from {where}, not {want_path}")
-        return got, ref, err, where
+        return got, ref, err, where, g, ptx, path, targs
 
     # beyond the fixtures, checked and not timed: 200 mu knots, with outer
     # nodes on both sides of s; row tables over 227 KB (KE 512 x KMU 64), read through L2
     check("kmu200", cm_check_tile(dev, 64, 512, 32, 200, seed=7), 64, "shared")
     check("l2_tables", cm_check_tile(dev, 16, 256, 512, 64, seed=8), 64, "l2")
 
-    tiles = cm_tiles(dev)
     total = {"max_abs_err": 0.0, "max_rel_row_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-             "tiles": {}}
+             "tiles": {}, "lanes": {}}
     bytes_ms = ops_ms = 0.0
-    for name, (args, chunk) in tiles.items():
-        got, ref, err, where = check(name, args, chunk)
-        w = args[0]
-        ms = time_turns({
-            "kernel": lambda a=args: cont_ops.cm_inner_moments(*a),
-            "plain": lambda a=args, c=chunk: cont_ops.cm_inner_moments_ref(*a, chunk=c),
-        }, n=5, reps=3)
-        bound_ms, bound_by, info = cm_bound(args)
-        phase("cmk", f"{name}: device time per call, median of 2 x 3 graph replays of 5 calls, in turns: kernel "
-              f"{ms['kernel']:.5f} ms, plain torch {ms['plain']:.5f} ms (chunk {chunk} outer nodes); bound "
-              f"{bound_ms:.5f} ms ({bound_by}: {json.dumps(info)}) on {smi}")
-        total["max_abs_err"] = max(total["max_abs_err"], float((got - ref).abs().max()))
-        total["max_rel_row_err"] = max(total["max_rel_row_err"], err)
-        total["ms"] += ms["kernel"]
-        total["plain_ms"] += ms["plain"]
-        total["bound_ms"] += bound_ms
-        total["tiles"][name] = {"shape": list(w.shape), "ms": ms["kernel"], "plain_ms": ms["plain"],
-                                "bound_ms": bound_ms, "bound_by": bound_by, "row_tables": where}
-        bytes_ms += info["bytes_ms"]
-        ops_ms += info["ops_ms"]
-    # what bounds the three tiles together: their byte times summed against their operation times summed
+    for n_rows in (CM_ROWS, CM_DECK_ROWS):
+        for fixture, (args, chunk) in cm_tiles(dev, n_rows).items():
+            name = f"{fixture}@{n_rows}"
+            got, ref, err, where, g, ptx, path, targs = check(name, args, chunk)
+            w = args[0]
+            ms = time_turns({
+                "kernel": lambda a=args: cont_ops.cm_inner_moments(*a),
+                "plain": lambda a=args, c=chunk: cont_ops.cm_inner_moments_ref(*a, chunk=c),
+            }, n=5, reps=3)
+            bound_ms, bound_by, info = cm_bound(args)
+            floor = node_floor(path, "cm_inner_kernel",
+                               targs[:-1] + [1], {"node": info["live_inner_panels"] * args[11]})
+            phase("cmk", f"{name}: device time per call, median of 2 x 3 graph replays of 5 calls, in turns: kernel "
+                  f"{ms['kernel']:.5f} ms, plain torch "
+                  f"{ms['plain']:.5f} ms (chunk {chunk} outer nodes); bound {bound_ms:.5f} ms ({bound_by}: "
+                  f"{json.dumps(info)}); instruction floor {json.dumps(floor)} on {smi}")
+            total["max_abs_err"] = max(total["max_abs_err"], float((got - ref).abs().max()))
+            total["max_rel_row_err"] = max(total["max_rel_row_err"], err)
+            if n_rows == CM_ROWS:
+                total["ms"] += ms["kernel"]
+                total["plain_ms"] += ms["plain"]
+                total["bound_ms"] += bound_ms
+                bytes_ms += info["bytes_ms"]
+                ops_ms += info["ops_ms"]
+            total["tiles"][name] = {"shape": list(w.shape), "ms": ms["kernel"], "plain_ms": ms["plain"],
+                                    "bound_ms": bound_ms, "bound_by": bound_by, "row_tables": where, "lanes": g,
+                                    "registers": ptx["registers"], "warps_per_sm": resident_warps(ptx["registers"]),
+                                    "floor": floor}
+            total["lanes"][name] = g
+    # what bounds the three 256-row tiles together: their byte times summed against their operation times summed
     total["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
     return total
 
@@ -769,6 +988,8 @@ def reset_counts() -> None:
         fn.launches = 0
         fn.launches_by_stream.clear()
     wrappers["cm_inner_moments"].row_tables.clear()
+    for name in ("sab_density", "cm_inner_moments"):
+        wrappers[name].lane_groups.clear()
 
 
 def read_counts() -> dict:
@@ -1111,8 +1332,8 @@ def main() -> int:
     smi = environment()
     build_s = build()
     kern = kernel_vs_plain(smi)
-    fgk = freegas_kernel_phase(smi)
-    cmk = cm_kernel_phase(smi)
+    fgk = freegas_kernel_phase(smi, build_s)
+    cmk = cm_kernel_phase(smi, build_s)
     with tempfile.TemporaryDirectory(prefix="ndpp_chip_smoke_") as work:
         by_deck = {
             "twobody": twobody_deck(Path(work)),
@@ -1167,6 +1388,8 @@ def main() -> int:
         "library_ms": None,  # no single PyTorch call computes the free-gas density
         "build_s": build_s["sab_density"],
         "shape": fgk["shape"],
+        "lanes": fgk["lanes"],  # G by tile
+        "tiles": fgk["tiles"],
     }, {
         "name": "cm_inner_moments",
         "route": "cuda",
@@ -1184,6 +1407,7 @@ def main() -> int:
         "library_ms": None,  # no single PyTorch call computes the CM inner integral
         "build_s": build_s["cm_inner_moments"],
         "tiles": cmk["tiles"],
+        "lanes": cmk["lanes"],  # G by tile
     }], "build_wall_s": build_s["wall_s"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -237,6 +237,7 @@ def _law_moments(
                             bounds[k] if b_d is None else b_d[k][sl],
                             awr, order, nq_w, nq_y, angular, energy, clamp, chunk, ksel,
                             "lagrange", angular == "tabular",
+                            lanes=cont_ops.cm_tile_lanes(plan.tile_rows(start), npan * nq_w, place.devices[k]),
                         )
                         pending.append((buf, start, length, place.fetch(res)))
         with RunMetrics.span_or_null(metrics, "wait.continuum"):

@@ -38,6 +38,7 @@ import numpy as np
 import scipy.special as sps
 import torch
 
+from ndpp_tpu_torch.ops.lanes import H100_SMS, check_lanes, device_sms, lane_group
 from ndpp_tpu_torch.ops.legendre import device_table, gl_nodes_weights
 from ndpp_tpu_torch.ops.panelsplit import lagrange_cumulants
 from ndpp_tpu_torch.ops.segment import effective_bounds, segment_group_sum
@@ -214,6 +215,7 @@ def cm_moments_pointwise(
     ksel: int = 0,
     group_split: str = "panels",  # "panels" | "lagrange" (see below)
     cross_edges: bool = False,  # tabular only: K x KMU crossing-image outer edges
+    lanes: int | None = None,  # the CUDA kernel's lanes per outer node (cm_inner_moments)
 ):
     """CM-frame continuum moments via the pointwise-E'_lab formulation: (T, L+1, G).
 
@@ -356,7 +358,7 @@ def cm_moments_pointwise(
     mnode = cm_inner_moments(
         w, s, yk, e_knots.contiguous(), chan_payload, mu_knots if tab else None, mu_pdf.contiguous() if tab else None,
         nbody_emax if nb else None, c_norm if nb else None, float(nbody_expo), order, nq_y, angular, energy, ksel,
-        chunk=max(1, chunk) * nq_w,
+        chunk=max(1, chunk) * nq_w, lanes=lanes,
     )  # (T, NW, L+1)
     if group_split == "lagrange":
         # node values of the DENSITY g(w) = dF/dw (2w from dE' = 2w dw, 1/s
@@ -631,18 +633,42 @@ def _check_cm(w, s, yk, e_knots, payload, mu_knots, mu_pdf, nbody_emax, c_norm,
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
+def cm_lanes(rows: int, nw: int, sms: int = H100_SMS) -> int:
+    """The lanes per outer node the kernel takes for a (rows, nw) tile."""
+    return lane_group(rows * nw, sms)
+
+
+def cm_tile_lanes(rows: int, nw: int, device: torch.device) -> int | None:
+    """The lanes per outer node of a dispatch tile of `rows` rows on
+    `device` (None off the card): what the continuum driver passes for every
+    piece of a tile split over shards, so that each sums as the whole tile
+    would."""
+    return cm_lanes(rows, nw, device_sms(device)) if device.type == "cuda" else None
+
+
+def cm_order_bucket(order: int) -> int:
+    """The sums the kernel keeps for an order, less one (csrc/cm_pointwise.cu
+    bucket()): 3, 5 or MAX_ORDER."""
+    return 3 if order <= 3 else 5 if order <= 5 else MAX_ORDER
+
+
 def cm_inner_moments(
     w, s, yk, e_knots, payload, mu_knots, mu_pdf, nbody_emax, c_norm, nbody_expo: float,
     order: int, nq_y: int, angular: str, energy: str, ksel: int, chunk: int | None = None,
+    lanes: int | None = None,
 ):
     """The inner integral of cm_moments_pointwise at every outer node: (T, NW, L+1).
 
     Operands as cm_inner_moments_ref; an operand the variant does not read
     is None. CUDA tensors launch the kernel on the current stream without
-    synchronising, every outer node in one launch (chunk is not read); CPU
-    tensors take cm_inner_moments_ref, `chunk` outer nodes at a time.
+    synchronising, every outer node in one launch (chunk is not read), with
+    `lanes` lanes per outer node (1, 2, 4 or 8; None: cm_lanes of this call's
+    tile). The lanes fix the order of each sum, so a caller that splits a
+    tile (the driver, over shards) passes the whole tile's. CPU tensors take
+    cm_inner_moments_ref, `chunk` outer nodes at a time.
     """
     _check_cm(w, s, yk, e_knots, payload, mu_knots, mu_pdf, nbody_emax, c_norm, order, nq_y, angular, energy, ksel)
+    check_lanes("cm_inner_moments", lanes)
     if w.device.type == "cpu":
         return cm_inner_moments_ref(w, s, yk, e_knots, payload, mu_knots, mu_pdf, nbody_emax, c_norm, nbody_expo,
                                     order, nq_y, angular, energy, ksel, chunk)
@@ -654,6 +680,7 @@ def cm_inner_moments(
     if tt == 0 or nw == 0:
         return out
     kmu = 0 if mu_knots is None else mu_knots.shape[0]
+    g = lanes or cm_lanes(tt, nw, device_sms(w.device))
     lib = _cm_library()
     xy, wy = gl_nodes_weights(nq_y)
     nsel = ksel if 0 < ksel < ke else ke
@@ -666,7 +693,7 @@ def cm_inner_moments(
         stream = torch.cuda.current_stream(w.device).cuda_stream
         rc = lib.cm_inner_launch(
             *(ptr(x) for x in (w, s, yk, e_knots, payload, mu_knots, mu_pdf, nbody_emax, c_norm)),
-            float(nbody_expo), tt, nw, ke, kmu, nsel, ANGULAR.index(angular), ENERGY.index(energy), order, nq_y,
+            float(nbody_expo), tt, nw, ke, kmu, nsel, ANGULAR.index(angular), ENERGY.index(energy), order, nq_y, g,
             xy.ctypes.data, wy.ctypes.data, out.data_ptr(), ctypes.byref(staged), stream,
         )
     if rc != 0:
@@ -674,26 +701,29 @@ def cm_inner_moments(
     cm_inner_moments.launches += 1
     cm_inner_moments.launches_by_stream[stream] += 1
     cm_inner_moments.row_tables["shared" if staged.value else "l2"] += 1
+    cm_inner_moments.lane_groups[g] += 1
     return out
 
 
 # Launches of the CUDA kernel since the last reset, in all, by the CUDA
-# stream that took them, and by where the rows' tables were read from
+# stream that took them, by where the rows' tables were read from
 # ("shared": staged in shared memory; "l2": read through the caches), as
-# the launch reports it. CPU calls never count.
+# the launch reports it, and by the lanes per outer node. CPU calls never
+# count.
 cm_inner_moments.launches = 0
 cm_inner_moments.launches_by_stream = Counter()
 cm_inner_moments.row_tables = Counter()
+cm_inner_moments.lane_groups = Counter()
 
 
 @lru_cache(maxsize=1)
 def _cm_library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library (every variant, L bucket and lane group), built on first use."""
     path, _ = build_cuda(_SRC)
     lib = ctypes.CDLL(str(path))
     fn = lib.cm_inner_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_double] + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3
+        [ctypes.c_void_p] * 9 + [ctypes.c_double] + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 3
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int

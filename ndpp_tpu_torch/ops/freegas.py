@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ndpp_tpu_torch.ops.continuum import CHUNK_BUDGET_BYTES
+from ndpp_tpu_torch.ops.lanes import H100_SMS, check_lanes, device_sms, lane_group
 from ndpp_tpu_torch.ops.legendre import device_table, gl_nodes_weights, legendre_all
 from ndpp_tpu_torch.ops.panelsplit import lagrange_cumulants
 from ndpp_tpu_torch.utils.build import build_cuda
@@ -130,18 +131,20 @@ def _per_row(x, e):
     return torch.as_tensor(x, dtype=e.dtype, device=e.device).expand(e.shape)
 
 
-def freegas_moments_sab(e, awr, kt, bounds, order: int, chunk: int = Y_PANELS):
+def freegas_moments_sab(e, awr, kt, bounds, order: int, chunk: int = Y_PANELS, lanes: int | None = None):
     """Free-gas moments via the exact scattering-law density: (T, L+1, G).
 
     e: (T,) incident energies, eV; awr, kt: scalars or (T,); bounds: FINITE
     covering window (G+1,), ascending. Rows are normalized over the window,
     so each P0 row sums to 1 (a row with no mass in it is left unscaled).
     chunk: y-panels evaluated at a time by the plain path (chunk_for); the
-    CUDA kernel takes every y-node in one launch.
+    CUDA kernel takes every y-node in one launch, with `lanes` lanes per
+    y-node (sab_density's).
     """
     v, awr, kt = torch.sqrt(e).contiguous(), _per_row(awr, e).contiguous(), _per_row(kt, e).contiguous()
     return _outgoing_panelsplit(
-        e, v, awr, kt, bounds, order, NQ_G, NFILL_Y, lambda pm, ph: sab_density(pm, ph, v, awr, kt, order, chunk)
+        e, v, awr, kt, bounds, order, NQ_G, NFILL_Y,
+        lambda pm, ph: sab_density(pm, ph, v, awr, kt, order, chunk, lanes),
     )
 
 
@@ -365,14 +368,51 @@ def _check_sab(pmid, phalf, v, awr, kt, order: int) -> None:
             raise ValueError(f"sab_density: {name} must be ({pmid.shape[0]},), got {tuple(x.shape)}")
 
 
-def sab_density(pmid, phalf, v, awr, kt, order: int, chunk: int = Y_PANELS):
+@lru_cache(maxsize=1)
+def sab_ulad_table() -> np.ndarray:
+    """The fixed-ladder table the kernel stages in shared memory: (3, 10, 24)
+    float64 (read-only), for each u-panel [ULAD[k], ULAD[k+1]] its 24 GL
+    nodes u, their weights w and exp(-u^2). u and w are rounded as _sab_dens
+    rounds them (u = pm + ph x_q, w = ph w_q, a product and then a sum), so
+    they equal the plain version's nodes on such a panel bit for bit."""
+    xq, wq = gl_nodes_weights(NQ_U)
+    e0, e1 = _SAB_ULAD[:-1], _SAB_ULAD[1:]
+    pm, ph = 0.5 * (e1 + e0), 0.5 * (e1 - e0)
+    u = pm[:, None] + ph[:, None] * xq[None, :]
+    table = np.stack([u, ph[:, None] * wq[None, :], np.exp(-(u * u))])
+    table.flags.writeable = False
+    return table
+
+
+@lru_cache(maxsize=16)
+def _ulad_device(device: torch.device) -> torch.Tensor:
+    return device_table(tuple(sab_ulad_table().ravel().tolist()), torch.float64, device)
+
+
+def sab_lanes(rows: int, n_panels: int = Y_PANELS, sms: int = H100_SMS) -> int:
+    """The lanes per y-node the kernel takes for a (rows, n_panels) tile."""
+    return lane_group(rows * n_panels * NQ_G, sms)
+
+
+def sab_tile_lanes(rows: int, device: torch.device) -> int | None:
+    """The lanes per y-node of a dispatch tile of `rows` rows on `device`
+    (None off the card): what the free-gas driver passes for every piece of
+    a tile split over shards, so that each sums as the whole tile would."""
+    return sab_lanes(rows, Y_PANELS, device_sms(device)) if device.type == "cuda" else None
+
+
+def sab_density(pmid, phalf, v, awr, kt, order: int, chunk: int = Y_PANELS, lanes: int | None = None):
     """g(y) = dF_l/dE' * 2y at every GL node of the y-panels: (T, NP, NQ_G, L+1).
 
     pmid/phalf: (T, NP) y-panel mids and halves; v = sqrt(E), awr, kt: (T,).
     CUDA tensors launch the kernel on the current stream without
-    synchronising (chunk is not read); CPU tensors take sab_density_ref.
+    synchronising (chunk is not read), with `lanes` lanes per y-node (1, 2,
+    4 or 8; None: sab_lanes of this call's tile). The lanes fix the order of
+    each sum, so a caller that splits a tile (the driver, over shards)
+    passes the whole tile's. CPU tensors take sab_density_ref.
     """
     _check_sab(pmid, phalf, v, awr, kt, order)
+    check_lanes("sab_density", lanes)
     if pmid.device.type == "cpu":
         return sab_density_ref(pmid, phalf, v, awr, kt, order, chunk)
     if pmid.device.type != "cuda":
@@ -381,35 +421,39 @@ def sab_density(pmid, phalf, v, awr, kt, order: int, chunk: int = Y_PANELS):
     out = torch.empty((tt, npan, NQ_G, order + 1), dtype=torch.float64, device=pmid.device)
     if tt == 0 or npan == 0:
         return out
+    g = lanes or sab_lanes(tt, npan, device_sms(pmid.device))
     lib = _sab_library()
     xg, _ = gl_nodes_weights(NQ_G)
     xu, wu = gl_nodes_weights(NQ_U)
+    table = _ulad_device(pmid.device)
     with torch.cuda.device(pmid.device):
         stream = torch.cuda.current_stream(pmid.device).cuda_stream
         rc = lib.freegas_sab_launch(
-            *(x.data_ptr() for x in (pmid, phalf, v, awr, kt)), tt, npan, NQ_G, order,
+            *(x.data_ptr() for x in (pmid, phalf, v, awr, kt, table)), tt, npan, NQ_G, order, g,
             *(a.ctypes.data for a in (xg, xu, wu, _SAB_ULAD, _SAB_CLAD)), out.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"sab_density: kernel launch failed with cudaError {rc}")
     sab_density.launches += 1
     sab_density.launches_by_stream[stream] += 1
+    sab_density.lane_groups[g] += 1
     return out
 
 
-# Launches of the CUDA kernel since the last reset, in all and by the CUDA
-# stream that took them. CPU calls never count.
+# Launches of the CUDA kernel since the last reset, in all, by the CUDA
+# stream that took them, and by the lanes per y-node. CPU calls never count.
 sab_density.launches = 0
 sab_density.launches_by_stream = Counter()
+sab_density.lane_groups = Counter()
 
 
 @lru_cache(maxsize=1)
 def _sab_library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library (every order and lane group), built on first use."""
     path, _ = build_cuda(_SRC)
     lib = ctypes.CDLL(str(path))
     fn = lib.freegas_sab_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
     fn.restype = ctypes.c_int
     return lib
 

@@ -158,9 +158,10 @@ class RowPlan:
         nd = place.nd
         self.piece_rows = -(-tile // nd)  # the most rows one piece holds
         self.pieces: list[tuple[int, slice, int, int]] = []
+        self._tiles = list(tile_indices(n, tile))
         spans: list[list[tuple[int, int]]] = [[] for _ in range(nd)]
         held = [0] * nd
-        for start, length in tile_indices(n, tile):
+        for start, length in self._tiles:
             per = -(-length // nd)
             for k in range(nd):
                 lo, hi = min(k * per, length), min((k + 1) * per, length)
@@ -169,6 +170,12 @@ class RowPlan:
                     spans[k].append((start + lo, start + hi))
                     held[k] += hi - lo
         self._spans = spans
+
+    def tile_rows(self, start: int) -> int:
+        """The rows of the dispatch tile that holds row `start` of the set, all
+        shards' pieces of it together (what a kernel's lanes are chosen from,
+        so that a split tile sums as it does on one device)."""
+        return next(length for t0, length in reversed(self._tiles) if t0 <= start)
 
     def put(self, arr) -> list[torch.Tensor | None]:
         """Host rows (n, ...) -> float64 tensors, one per shard on its

@@ -22,10 +22,13 @@ from pathlib import Path
 _ROOT = Path(__file__).resolve().parents[2]  # the checkout root, or site-packages when installed
 
 # The flags every kernel of the port is built with: Hopper's sm_90a, a shared
-# library with a plain C interface (bound with ctypes), ptxas's register report.
+# library with a plain C interface (bound with ctypes), the optimizer's passes
+# over the many template instances split across every CPU (a library builds
+# about twice as fast with the same registers: scripts/torch_build_time.py),
+# ptxas's register report.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "--split-compile=0", "-Xptxas", "-v",
 ]
 
 

@@ -41,9 +41,11 @@ y-panels x nq_g x u-panels x nq_u) and the bytes of one (T, chunk x nq_g,
 u-panels, nq_u) float64 tensor: the sizes a prediction of the device time is
 reckoned from. The chunks and chunk tensors are the plain (CPU) path's; on
 the card each call is one kernel launch, and kernel_tiles lists, per call
-of either op, that launch: its kernel, rows, grid (rows x 128-thread
-blocks), and for cm_inner_kernel the bytes of a row's tables and whether
-they are staged in shared memory or read through L2.
+of either op, that launch: its kernel, rows, lanes per point (G, as the
+wrapper chooses it for an H100's 132 SMs), grid (rows x 128-thread blocks),
+the order the kernel is instantiated for (free-gas: L; CM: the L bucket),
+and for cm_inner_kernel the bytes of a row's tables and whether they are
+staged in shared memory or read through L2.
 """
 
 from __future__ import annotations
@@ -113,6 +115,34 @@ def cm_row_table_bytes(ke: int, kmu: int, angular: str, energy: str) -> int:
     return 8 * n
 
 
+def freegas_tile(rows: int, order: int) -> dict:
+    """The launch of freegas_sab_kernel for a freegas_moments_sab call of
+    `rows` rows, as sab_density makes it on an H100."""
+    from ndpp_tpu_torch.ops import freegas as fg_ops
+
+    lanes = fg_ops.sab_lanes(rows, fg_ops.Y_PANELS)
+    return {
+        "kernel": "freegas_sab_kernel", "rows": rows, "y_nodes": fg_ops.Y_PANELS * fg_ops.NQ_G, "lanes": lanes,
+        "order": order, "grid": [rows, -(-fg_ops.Y_PANELS * fg_ops.NQ_G * lanes // THREADS)], "threads": THREADS,
+        "path": "fixed-ladder table in shared memory",
+    }
+
+
+def cm_tile(rows: int, nw: int, ke: int, kmu: int, ksel: int, order: int, angular: str, energy: str) -> dict:
+    """The launch of cm_inner_kernel for a (rows, nw) tile, as
+    cm_inner_moments makes it on an H100."""
+    from ndpp_tpu_torch.ops import continuum as cont_ops
+
+    row_bytes = cm_row_table_bytes(ke, kmu, angular, energy)
+    lanes = cont_ops.cm_lanes(rows, nw)
+    return {
+        "kernel": "cm_inner_kernel", "variant": [angular, energy, "window" if 0 < ksel < ke else "all knots"],
+        "rows": rows, "outer_nodes": nw, "lanes": lanes, "order_bucket": cont_ops.cm_order_bucket(order),
+        "grid": [rows, -(-nw * lanes // THREADS)], "threads": THREADS, "row_table_bytes": row_bytes,
+        "path": "shared" if row_bytes <= SMEM_BYTES_MAX else "l2",
+    }
+
+
 def plan(which: str) -> dict:
     """The deck's dispatch plan, from a CPU run whose device ops only record."""
     import torch
@@ -135,7 +165,7 @@ def plan(which: str) -> dict:
         return e.new_zeros((e.shape[0], order + 1, bounds.shape[-1] - 1))
 
     def cm(e, e_knots, pdf_e, r_rows, a_rows, mu_knots, mu_pdf, emax, expo, bounds, awr, order, nq_w, nq_y,
-           angular, energy, clamp, chunk, ksel, group_split, cross_edges):
+           angular, energy, clamp, chunk, ksel, group_split, cross_edges, lanes=None):
         t = e.shape[0]
         ke = cont_ops.NBODY_KNOTS if energy == "nbody" else e_knots.shape[1]
         kmu = 0 if mu_knots is None else mu_knots.shape[0]
@@ -149,12 +179,7 @@ def plan(which: str) -> dict:
         c = calls[f"cm_moments_pointwise[{angular},{energy}]"]
         c["chunk_tensor_bytes_max"] = max(c["chunk_tensor_bytes_max"], t * min(chunk, npan) * nq_w * sy * nq_y * 8)
         c.setdefault("shapes", set()).add((ke, ksel, kmu, npan, sy, nb))
-        row_bytes = cm_row_table_bytes(ke, kmu, angular, energy)
-        kernel_tiles.append({
-            "kernel": "cm_inner_kernel", "variant": [angular, energy, "window" if 0 < ksel < ke else "all knots"],
-            "rows": t, "outer_nodes": npan * nq_w, "grid": [t, -(-npan * nq_w // THREADS)], "threads": THREADS,
-            "row_table_bytes": row_bytes, "path": "shared" if row_bytes <= SMEM_BYTES_MAX else "l2",
-        })
+        kernel_tiles.append(cm_tile(t, npan * nq_w, ke, kmu, ksel, order, angular, energy))
         return e.new_zeros((t, order + 1, nb))
 
     def lab(e_knots, pdf, moms, bounds, order, nq=6, clamp=True):
@@ -173,7 +198,7 @@ def plan(which: str) -> dict:
         count("tabular_group_fractions", e_knots.shape[0])
         return pdf.new_zeros((e_knots.shape[0], bounds.shape[-1] - 1))
 
-    def freegas(e, awr, kt, bounds, order, chunk):
+    def freegas(e, awr, kt, bounds, order, chunk, lanes=None):
         from ndpp_tpu_torch.ops import freegas as fg_ops
 
         work = freegas_work(e, bounds, order)
@@ -183,11 +208,7 @@ def plan(which: str) -> dict:
         c["chunk_tensor_bytes_max"] = max(
             c["chunk_tensor_bytes_max"], e.shape[0] * chunk * fg_ops.NQ_G * fg_ops.U_PANELS * fg_ops.NQ_U * 8)
         c.setdefault("shapes", set()).add((e.shape[0], chunk, bounds.shape[0] - 1))
-        kernel_tiles.append({
-            "kernel": "freegas_sab_kernel", "rows": e.shape[0], "y_nodes": fg_ops.Y_PANELS * fg_ops.NQ_G,
-            "grid": [e.shape[0], -(-fg_ops.Y_PANELS * fg_ops.NQ_G // THREADS)], "threads": THREADS,
-            "path": "no shared memory",
-        })
+        kernel_tiles.append(freegas_tile(e.shape[0], order))
         return e.new_zeros((e.shape[0], order + 1, bounds.shape[0] - 1))
 
     def thermal_cont(e_knots, pdf, am, bounds, order):
@@ -310,14 +331,14 @@ def profile(which: str) -> dict:
     fg_op = freegas_driver.freegas_moments_sab
     cm_op = continuum_driver.cm_moments_pointwise
 
-    def fg_ranged(e, awr, kt, bounds, order, chunk):
+    def fg_ranged(e, awr, kt, bounds, order, chunk, lanes=None):
         fg_calls.append(freegas_work(e, bounds, order))
         with torch.profiler.record_function(FREEGAS_RANGE):
-            return fg_op(e, awr, kt, bounds, order, chunk)
+            return fg_op(e, awr, kt, bounds, order, chunk, lanes)
 
-    def cm_ranged(*args):
+    def cm_ranged(*args, **kw):
         with torch.profiler.record_function(CM_RANGE):
-            return cm_op(*args)
+            return cm_op(*args, **kw)
 
     freegas_driver.freegas_moments_sab = fg_ranged
     continuum_driver.cm_moments_pointwise = cm_ranged

@@ -17,7 +17,16 @@ card; on the CPU each wrapper takes its plain torch version. So here:
     monotone in mu merged with the clipped knots, give torch.sort's multiset
     for any number of mu knots, at outer nodes on both sides of s;
   - each wrapper refuses what its kernel does not take, and the CPU path
-    never counts a launch.
+    never counts a launch;
+  - the premises of the redesigned kernels' arithmetic: numpy emulations of
+    the free-gas node's rsqrt form (t = u + d r, jac = 1 + u r with
+    r = rsqrt(u^2 + c)) and its table form exp(-u^2) exp(-bpos) match the
+    plain formulas, edge cases included; the fixed-ladder table's u-nodes and
+    weights are the plain version's on every table panel of the thermal
+    tile, bit for bit; the CM node's hoisted reciprocals keep the plain
+    version's table cells and match its divisions; the lanes per point that
+    the wrappers choose are the ones scripts/torch_profile_deck.py --plan
+    reports for the decks' tiles.
 
 The tests marked cuda hold each kernel against its plain version on the card
 (python -m pytest --noconftest -m cuda tests/test_torch_hand_kernels.py); the
@@ -129,9 +138,9 @@ def _cm_operands(angular="kalbach", energy="tabular", ksel=0, t=4):
     seen = {}
     real = t_cont.cm_inner_moments
 
-    def capture(*args, chunk=None):
+    def capture(*args, chunk=None, lanes=None):
         seen["call"] = (args, chunk)
-        return real(*args, chunk=chunk)
+        return real(*args, chunk=chunk, lanes=lanes)
 
     t_cont.cm_inner_moments = capture
     try:
@@ -154,9 +163,9 @@ def _sab_operands(awr=15.858, rows=4, order=ORDER):
     seen = {}
     real = t_fg.sab_density
 
-    def capture(pm, ph, v, a, k, order, chunk=t_fg.Y_PANELS):
+    def capture(pm, ph, v, a, k, order, chunk=t_fg.Y_PANELS, lanes=None):
         seen["args"] = (pm, ph, v, a, k)
-        return real(pm, ph, v, a, k, order, chunk)
+        return real(pm, ph, v, a, k, order, chunk, lanes)
 
     t_fg.sab_density = capture
     try:
@@ -359,6 +368,197 @@ def test_cpu_calls_never_count_a_launch():
     assert not t_fg.sab_density.launches_by_stream and not t_cont.cm_inner_moments.launches_by_stream
 
 
+def _fma(a, b, c):
+    """a * b + c with one rounding (through long double, as the kernels' fma)."""
+    return np.asarray(np.longdouble(a) * np.longdouble(b) + np.longdouble(c), dtype=np.float64)
+
+
+def _rsqrt_normal(x):
+    """The kernels' rsqrt_normal: an approximation good to ~2^-22 (as
+    rsqrt.approx.f64), then one third-order correction."""
+    r = (1.0 / np.sqrt(x)) * (1.0 + 2.0**-22)
+    e = _fma(-x, r * r, 1.0)
+    return _fma(_fma(0.375, e, 0.5), r * e, r)
+
+
+def _rcp_normal(x):
+    """The CM kernel's rcp_normal: ~2^-22 (as rcp.approx.f64), then one
+    third-order correction."""
+    r = (1.0 / x) * (1.0 - 2.0**-22)
+    e = _fma(-x, r, 1.0)
+    return _fma(r, _fma(e, e, e), r)
+
+
+@pytest.mark.parametrize("case", ["random", "c0-u-negative", "u0-c0", "bpos-large"])
+def test_freegas_rsqrt_and_table_forms_match_the_plain_node(case):
+    """csrc/freegas_sab.cu's node, emulated: t = u + d r, jac = 1 + u r with
+    r = rsqrt_normal(d), d = u^2 + c (sqrt(d) floored at 1e-30 below
+    d = 1e-60, as the plain version floors it), and the weight's exponential
+    as exp(-u^2) exp(-bpos) (the table form), against the plain formulas
+    t = u + sqrt(d), jac = t / max(sqrt(d), 1e-30), exp(-u^2 - bpos): within
+    1e-13 of each quantity's scale."""
+    rng = np.random.default_rng(17)
+    u = rng.uniform(-8.5, 8.5, size=4000)
+    c = rng.uniform(0.0, 50.0, size=4000)
+    bpos = rng.uniform(0.0, 30.0, size=4000)
+    if case == "c0-u-negative":
+        c[:] = 0.0
+        u = -np.abs(u)
+    elif case == "u0-c0":
+        u[::2], c[::2] = 0.0, 0.0
+        c[1::2] = 0.0
+    elif case == "bpos-large":
+        bpos = rng.uniform(300.0, 600.0, size=4000)
+    d = _fma(u, u, c)
+    r = np.where(d > 0, _rsqrt_normal(np.where(d > 0, d, 1.0)), np.inf)
+    with np.errstate(invalid="ignore"):  # 0 x inf where d = 0, replaced below as in the kernel
+        t = _fma(d, r, u)
+        jac = _fma(u, r, 1.0)
+    low = d < 1e-60
+    t = np.where(low, u + np.sqrt(d), t)
+    jac = np.where(low, t * 1e30, jac)
+    expo_k = np.exp(-(u * u)) * np.exp(-bpos)
+    root = np.sqrt(u * u + c)
+    t_p = u + root
+    jac_p = t_p / np.maximum(root, 1e-30)
+    expo_p = np.exp(-(u * u) - bpos)
+    assert np.isfinite(t).all() and np.isfinite(jac).all()
+    np.testing.assert_allclose(t, t_p, rtol=0, atol=1e-13 * np.max(np.abs(u) + root))
+    np.testing.assert_allclose(jac, jac_p, rtol=0, atol=1e-13)
+    np.testing.assert_allclose(expo_k, expo_p, rtol=1e-13, atol=0)
+    if case != "random":
+        assert low.any() == (case == "u0-c0") and (jac[low] == 0.0).all()
+
+
+def test_freegas_table_nodes_are_the_plain_nodes_bit_for_bit():
+    """On the thermal tile's y-nodes (h1 rows below 400 kT at 293.6 K, 32
+    of them here), every live u-panel of sab_u_edges whose edges are two
+    consecutive _SAB_ULAD values has the plain version's nodes u = pm + ph x_q
+    and weights ph w_q equal to sab_ulad_table's row for it, bit for bit; such
+    panels are about half of the live ones."""
+    import chip_smoke
+
+    e, awr, kt, window = chip_smoke.freegas_inputs("cpu", 32)
+    v = torch.sqrt(e)
+    a_r, k_r = t_fg._per_row(awr, e), t_fg._per_row(kt, e)
+    seen = {}
+
+    def gvals(pm, ph):  # capture the y-panels; the density itself is not needed
+        seen.update(pm=pm, ph=ph)
+        return pm.new_zeros(pm.shape + (t_fg.NQ_G, 1))
+
+    t_fg._outgoing_panelsplit(e, v, a_r, k_r, window, 0, t_fg.NQ_G, t_fg.NFILL_Y, gvals)
+    xg = torch.as_tensor(gl_nodes_weights(t_fg.NQ_G)[0])
+    y = (seen["pm"][:, :, None] + seen["ph"][:, :, None] * xg).reshape(e.shape[0], -1)
+    edges = t_fg.sab_u_edges(y, v, a_r, k_r)[0].numpy()
+    e0, e1 = edges[..., :-1], edges[..., 1:]
+    ulad = t_fg._SAB_ULAD
+    k = np.clip(np.searchsorted(ulad, e0), 0, ulad.size - 2)
+    table = (e1 > e0) & (ulad[k] == e0) & (ulad[k + 1] == e1)
+    xq, wq = (torch.as_tensor(a) for a in gl_nodes_weights(t_fg.NQ_U))
+    pm, ph = torch.as_tensor(0.5 * (e1 + e0))[table], torch.as_tensor(0.5 * (e1 - e0))[table]
+    u = (pm[:, None] + ph[:, None] * xq).numpy()  # _sab_dens's own operations
+    w = (ph[:, None] * wq).numpy()
+    tab = t_fg.sab_ulad_table()
+    assert tab.shape == (3, ulad.size - 1, t_fg.NQ_U)
+    np.testing.assert_array_equal(u, tab[0][k[table]])
+    np.testing.assert_array_equal(w, tab[1][k[table]])
+    np.testing.assert_array_equal(np.exp(-(u * u)), tab[2][k[table]])
+    assert 0.4 < table.sum() / (e1 > e0).sum() < 0.7
+
+
+def test_cm_hoisted_reciprocals_keep_the_cells_and_the_values():
+    """csrc/cm_pointwise.cu's node, emulated on the tabular tile's live inner
+    panels: mu_lab = (w^2 + s^2 - x) / (2 s w) as a product with the outer
+    node's reciprocal, mu_cm with one rcp_normal(max(2 s y, 1e-30)), t_e and t_m
+    as products with the panel's reciprocal widths. The table cell of each
+    panel (je, jm, chosen from ymid with the division kept) is the plain
+    version's, and mu_lab, mu_cm and the bilinear p_mu match the division
+    form within 1e-13 of their scale (|mu| <= 1; p_mu: the row's largest)."""
+    args, _ = _cm_operands("tabular", "tabular", 0, t=3)
+    w, s, yk, e_knots, mu_knots, mu_pdf = (args[i] for i in (0, 1, 2, 3, 5, 6))
+    edges, ok_w, _, _ = t_cont.cm_inner_edges(w, s, yk, mu_knots, yk.shape[1])
+    xq = gl_nodes_weights(4)[0]
+    ek, muk, mup = e_knots.numpy(), mu_knots.numpy(), mu_pdf.numpy()
+    checked = 0
+    for t in range(w.shape[0]):
+        sv = float(s[t])
+        for i in range(0, w.shape[1], 3):
+            if not ok_w[t, i]:
+                continue
+            wv = float(w[t, i])
+            wms2, wps2 = wv * wv - sv * sv, wv * wv + sv * sv
+            lab_den = max(2.0 * sv * wv, 1e-30)
+            inv_lab = 1.0 / lab_den
+            ed = edges[t, i].numpy()
+            for e0, e1 in zip(ed[:-1], ed[1:]):
+                if not e1 > e0:
+                    continue
+                ymid, yhalf = 0.5 * (e1 + e0), 0.5 * (e1 - e0)
+                # the cell: the plain version's rule, with its division (the kernel keeps both)
+                je = int(np.clip(np.searchsorted(ek[t], ymid * ymid, side="right") - 1, 0, ek.shape[1] - 2))
+                mum = np.clip((wms2 - ymid * ymid) / max(2.0 * sv * ymid, 1e-30), -1.0, 1.0)
+                jm = int(np.clip(np.searchsorted(muk, mum, side="right") - 1, 0, muk.size - 2))
+                je_p = int(t_cont._panel_index_rows(e_knots[t : t + 1], torch.tensor([[ymid * ymid]]))[0, 0])
+                jm_p = int(t_cont._panel_index_rows(mu_knots[None, :], torch.tensor([[mum]]))[0, 0])
+                assert (je, jm) == (je_p, jm_p)
+                ek_w, mk_w = max(ek[t, je + 1] - ek[t, je], 1e-30), max(muk[jm + 1] - muk[jm], 1e-30)
+                c00, c01, c10, c11 = mup[t, je, jm], mup[t, je, jm + 1], mup[t, je + 1, jm], mup[t, je + 1, jm + 1]
+                y = _fma(yhalf, xq, ymid)
+                x = y * y
+                lab_k = np.clip((wps2 - x) * inv_lab, -1.0, 1.0)
+                lab_p = np.clip((wps2 - x) / lab_den, -1.0, 1.0)
+                mu_k = np.clip((wms2 - x) * _rcp_normal(np.maximum(2.0 * sv * y, 1e-30)), -1.0, 1.0)
+                mu_p = np.clip((wms2 - x) / np.maximum(2.0 * sv * y, 1e-30), -1.0, 1.0)
+
+                def p_mu(t_e, t_m):
+                    lo_mix, hi_mix = c00 + t_m * (c01 - c00), c10 + t_m * (c11 - c10)
+                    return lo_mix + t_e * (hi_mix - lo_mix)
+
+                pa_k = p_mu(np.clip((x - ek[t, je]) * (1.0 / ek_w), 0, 1), np.clip((mu_k - muk[jm]) * (1.0 / mk_w), 0, 1))
+                pa_p = p_mu(np.clip((x - ek[t, je]) / ek_w, 0, 1), np.clip((mu_p - muk[jm]) / mk_w, 0, 1))
+                np.testing.assert_allclose(lab_k, lab_p, rtol=0, atol=1e-13)
+                np.testing.assert_allclose(mu_k, mu_p, rtol=0, atol=1e-13)
+                np.testing.assert_allclose(pa_k, pa_p, rtol=0, atol=1e-13 * np.abs(mup[t]).max())
+                checked += 1
+    assert checked > 100
+
+
+def test_wrappers_choose_the_lanes_the_plan_reports():
+    """The lanes per point of sab_density and cm_inner_moments on an H100
+    (132 SMs) are the ones torch_profile_deck.py --plan lists, on the decks'
+    tile sizes (thermal: free-gas calls of 7-239 rows; continuum: CM calls
+    of kalbach 7 and 11, law61cm 15, nbody 1 and 13 rows), and they fill the
+    card: G = 1 where a lane per point does, the smallest G that does else,
+    8 at most."""
+    import importlib.util
+    from pathlib import Path
+
+    from ndpp_tpu_torch.ops.lanes import H100_SMS, lane_group
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / "torch_profile_deck.py"
+    spec = importlib.util.spec_from_file_location("torch_profile_deck", path)
+    deck = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(deck)
+    want = {7: 8, 14: 8, 15: 8, 20: 8, 98: 2, 103: 2, 194: 1, 204: 1, 217: 1, 239: 1, 256: 1}
+    for rows, g in want.items():
+        assert deck.freegas_tile(rows, 5)["lanes"] == t_fg.sab_lanes(rows, t_fg.Y_PANELS, H100_SMS) == g
+    for rows, nw, ke, kmu, ksel, angular, energy, g in [
+        (11, 2780, 128, 0, 32, "kalbach", "tabular", 8), (7, 2780, 128, 0, 32, "kalbach", "tabular", 8),
+        (16, 2780, 128, 0, 32, "kalbach", "tabular", 4), (15, 18684, 64, 21, 0, "tabular", "tabular", 1),
+        (1, 760, 27, 0, 0, "isotropic", "nbody", 8), (13, 760, 27, 0, 0, "isotropic", "nbody", 8),
+        (256, 2780, 128, 0, 32, "kalbach", "tabular", 1),
+    ]:
+        tile = deck.cm_tile(rows, nw, ke, kmu, ksel, 5, angular, energy)
+        assert tile["lanes"] == t_cont.cm_lanes(rows, nw, H100_SMS) == g
+        assert tile["order_bucket"] == 5 and tile["grid"] == [rows, -(-nw * g // 128)]
+    assert [t_cont.cm_order_bucket(o) for o in range(11)] == [3] * 4 + [5] * 2 + [10] * 5
+    sizes = [lane_group(n) for n in (1, 10_000, 50_000, 100_000, 200_000)]
+    assert sizes == sorted(sizes, reverse=True) and sizes[0] == 8 and sizes[-1] == 1
+    with pytest.raises(ValueError, match="lanes"):
+        t_fg.sab_density(*_sab_operands(), ORDER, lanes=3)
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc (run python3 chip_smoke.py on the card)")
@@ -405,3 +605,81 @@ def test_cm_kernel_takes_any_mu_table_on_the_card(shape):
     torch.cuda.synchronize()
     assert dict(t_cont.cm_inner_moments.row_tables) == {path: 1}
     _row_close(got.cpu(), t_cont.cm_inner_moments_ref(*args, chunk=64).cpu(), atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+def test_sab_kernel_every_lane_group_matches_plain_version_on_the_card(lanes):
+    """Each lane group G, forced, on a tile of 16 rows (whose own choice is 8)."""
+    _need_card()
+    pm, ph, v, awr, kt = (x.cuda() for x in _sab_operands(awr=0.999167, rows=16, order=5))
+    t_fg.sab_density.lane_groups.clear()
+    got = t_fg.sab_density(pm, ph, v, awr, kt, 5, lanes=lanes)
+    torch.cuda.synchronize()
+    assert dict(t_fg.sab_density.lane_groups) == {lanes: 1}
+    _row_close(got.cpu(), t_fg.sab_density_ref(pm, ph, v, awr, kt, 5).cpu(), atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+@pytest.mark.parametrize("variant", [(a, e, k) for a in t_cont.ANGULAR for e in ("tabular", "nbody") for k in (0, 4)])
+def test_cm_kernel_every_lane_group_matches_plain_version_on_the_card(variant, lanes):
+    """Every template instance at P3 (its L bucket 3) under each lane group G, forced."""
+    _need_card()
+    args, chunk = _cm_operands(*variant)
+    args = tuple(x.cuda() if torch.is_tensor(x) else x for x in args)
+    t_cont.cm_inner_moments.lane_groups.clear()
+    got = t_cont.cm_inner_moments(*args, lanes=lanes)
+    torch.cuda.synchronize()
+    assert dict(t_cont.cm_inner_moments.lane_groups) == {lanes: 1}
+    _row_close(got.cpu(), t_cont.cm_inner_moments_ref(*args, chunk=chunk).cpu(), atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [None, 8])
+def test_two_launches_of_one_tile_are_bit_equal_on_the_card(lanes):
+    """The lane groups' sums meet in a fixed butterfly: the same tile twice
+    gives the same bits, for both kernels."""
+    _need_card()
+    pm, ph, v, awr, kt = (x.cuda() for x in _sab_operands(awr=0.999167, rows=16, order=5))
+    a = t_fg.sab_density(pm, ph, v, awr, kt, 5, lanes=lanes)
+    b = t_fg.sab_density(pm, ph, v, awr, kt, 5, lanes=lanes)
+    args, _ = _cm_operands("tabular", "tabular", 4)
+    args = tuple(x.cuda() if torch.is_tensor(x) else x for x in args)
+    c = t_cont.cm_inner_moments(*args, lanes=lanes)
+    d = t_cont.cm_inner_moments(*args, lanes=lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [0, 1, 3, 5, 10])
+@pytest.mark.parametrize("variant", [("kalbach", "tabular", 4), ("tabular", "tabular", 0)])
+def test_cm_kernel_orders_cross_every_bucket_on_the_card(variant, order):
+    """Orders 0, 1 and 3 (bucket 3), 5 (bucket 5) and 10 (bucket 10)."""
+    _need_card()
+    d = _cm_inputs(seed=5, t=4)
+    seen = {}
+    real = t_cont.cm_inner_moments
+
+    def capture(*args, chunk=None, lanes=None):
+        seen["call"] = (args, chunk)
+        return real(*args, chunk=chunk, lanes=lanes)
+
+    angular, energy, ksel = variant
+    nb, kal, tab = energy == "nbody", angular == "kalbach", angular == "tabular"
+    t_cont.cm_inner_moments = capture
+    try:
+        t_cont.cm_moments_pointwise(
+            _t(d["e"]), _t(d["kn"]), _t(d["pd"]), _t(d["rr"]) if kal else None, _t(d["aa"]) if kal else None,
+            _t(d["muk"]) if tab else None, _t(d["mup"]) if tab else None, None, 0.5, _t(_bounds(12)), AWR, order,
+            4, 4, angular, energy, True, 8, ksel, "lagrange", tab,
+        )
+    finally:
+        t_cont.cm_inner_moments = real
+    args, chunk = seen["call"]
+    args = tuple(x.cuda() if torch.is_tensor(x) else x for x in args)
+    got = t_cont.cm_inner_moments(*args)
+    torch.cuda.synchronize()
+    assert got.shape[-1] == order + 1 and not nb
+    _row_close(got.cpu(), t_cont.cm_inner_moments_ref(*args, chunk=chunk).cpu(), atol=0.0)
