@@ -21,6 +21,7 @@ def _driver_moments(nuc, rxn, e_sel, gs, order):
     return continuum_reaction_moments(nuc, rxn, e_sel, gs, order, CFG)
 
 
+@pytest.mark.slow
 def test_kalbach_cm_vs_oracle():
     nuc = synth.build("kalbach")
     rxn = nuc.reactions[91]
@@ -73,6 +74,7 @@ def test_normalization_properties():
         assert np.all(np.abs(dev[:, 1:, :].sum(axis=2)) <= dev[:, 0, :].sum(axis=1)[:, None] + 1e-10)
 
 
+@pytest.mark.slow
 def test_law61_cm_vs_oracle():
     """CM-frame law 61 exercises the cm-tabular pointwise kernel (bilinear
     (E', mu) payload + closed-form mu-knot crossing roots)."""
