@@ -1,7 +1,9 @@
 """A cell's deck from its configuration, its traffic file and the seed.
 
 The configuration (benchmark/configs/<config>.json) holds the catalog of
-nuclides the deployment's library stands for, each with its sizes; the
+nuclides the deployment's library stands for, each with its sizes and its
+reactions (synth.twobody_nuclide: elastic and discrete levels; laws.py:
+continuum reactions and a fission block, where the entry has them); the
 traffic file (benchmark/workloads/<cell>.json) names the catalog entries of
 the deck, in sweep order, and its S(alpha,beta) assignments. The seed draws
 every value, and never a size nor the order of the sweep: every seed gives
@@ -18,7 +20,7 @@ from pathlib import Path
 
 import numpy as np
 
-from . import ace_values, synth
+from . import ace_values, laws, synth
 from .records import Nuclide
 from .write import write_ace
 
@@ -50,7 +52,10 @@ def build(config: dict, traffic: dict, seed: int, keys=None, n_base: int | None 
         if n_base is not None:
             spec["n_base"], spec["resonances"] = n_base, 0
         name = f"{spec['zaid']}.80c"
-        nuclides[name] = ace_values.nuclide(synth.twobody_nuclide(name, spec, _rng(seed, key)))
+        rng = _rng(seed, key)
+        nuc = synth.twobody_nuclide(name, spec, rng)
+        laws.add_families(nuc, spec, rng)  # draws nothing for an entry without continuum or fission
+        nuclides[name] = ace_values.nuclide(nuc)
         stand_in[name] = key
     return Deck(nuclides=nuclides, stand_in=stand_in)
 

@@ -14,8 +14,9 @@ format is fixed width (four values of 26 characters and a newline), so each
 array's byte length follows from the keyword line before it: the parser
 reads only the keyword lines and the parts the output check keeps (each
 nuclide's header line, energy grid, temperatures, `sigma_scatter`, small
-optional arrays such as chi, and the sampled rows of `scatter`), each with
-one `os.pread`, and skips the rest by offset. It counts the `scatter`
+optional arrays such as nu, the sampled rows of `scatter`, and the same
+incident rows of the chi arrays), each with one `os.pread`, and skips the
+rest by offset. It counts the `scatter`
 values that have reached the file: whole nuclides by their `end_nuclide`
 marker, the nuclide in progress by the scatter lines written so far.
 Offsets are of the pass's whole stream; the file holds the part of it from
@@ -35,6 +36,7 @@ VALUE_WIDTH = 26
 LINE = 4 * VALUE_WIDTH + 1
 _KEEP_WHOLE = 1 << 16  # optional arrays up to this many values are kept whole
 _LINE_PROBE = 4096  # bytes read to find a keyword line's end (grown if needed)
+CHI_ROWS = ("chi_prompt", "chi_delayed", "chi_total")  # (NE, G): kept at the sampled incident rows
 
 
 def array_bytes(n: int) -> int:
@@ -61,6 +63,8 @@ class NuclideBlock:
     arrays: dict[str, np.ndarray] = field(default_factory=dict)
     shapes: dict[str, tuple[int, ...]] = field(default_factory=dict)
     rows: dict[tuple[int, int], np.ndarray] = field(default_factory=dict)  # (t, e) -> (L+1, G)
+    chi_rows: dict[tuple[str, int], np.ndarray] = field(default_factory=dict)  # (key, e) -> (G,)
+    chosen: list[int] = field(default_factory=list)  # the sampled incident rows
     complete: bool = False
 
 
@@ -141,11 +145,16 @@ class StreamParser:
             nt, ne, lp1, ng = shape
             per = lp1 * ng
             cuts = []
-            for e in self.choose_rows(self.current, self.current.arrays.get("energy"), shape):
+            self.current.chosen = list(self.choose_rows(self.current, self.current.arrays.get("energy"), shape))
+            for e in self.current.chosen:
                 for t in range(nt):
                     k0 = (t * ne + e) * per
                     cuts.append((self.cur + value_offset(k0), self.cur + value_offset(k0 + per), (t, e)))
             self._cuts = sorted(cuts)
+        elif key in CHI_ROWS and len(shape) == 2 and self.current is not None:
+            ng = shape[1]
+            self._cuts = [(self.cur + value_offset(e * ng), self.cur + value_offset((e + 1) * ng), (key, e))
+                          for e in sorted(self.current.chosen) if e < shape[0]]
         elif n <= _KEEP_WHOLE:
             self._cuts = [(self.cur, self.cur + nbytes, None)]
         else:
@@ -159,7 +168,12 @@ class StreamParser:
         except ValueError as e:
             self.faults.append(f"{key}: {e}")
             return
-        want = shape[2] * shape[3] if key == "scatter" else int(np.prod(shape))
+        if key == "scatter":
+            want = shape[2] * shape[3]
+        elif tag is not None:  # a chi row
+            want = shape[1]
+        else:
+            want = int(np.prod(shape))
         if vals.size != want:
             self.faults.append(f"{key} {tag}: {vals.size} values where {want} belong; "
                                f"{raw[:60]!r} ... {raw[-60:]!r}")
@@ -168,6 +182,8 @@ class StreamParser:
             self.header.bounds = vals
         elif key == "scatter":
             self.current.rows[tag] = vals.reshape(shape[2], shape[3])
+        elif tag is not None:
+            self.current.chi_rows[tag] = vals
         elif self.current is not None:
             self.current.arrays[key] = vals.reshape(shape)
 

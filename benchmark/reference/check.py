@@ -15,9 +15,18 @@ Numbers compared (limits from `limits`, readings in PERF.md):
                      one incident energy: (L+1) x G moments), measured
                      against that row's scale: max |p - r| / max |r|
   rows_checked       sampled rows compared; at least one
-The configuration states the limit of sigma_gap and moment_gap (its
-`tolerance`: the 1e-8 of BASELINE.json, at the row's scale as the project's
-kernel and selfcheck comparisons measure it).
+  chi_gap            largest gap over the fissile sampled nuclides' chi
+                     rows (chi_prompt, chi_delayed, chi_total at the
+                     sampled incident rows, each at its row's scale) and
+                     the relative gaps of their nu values and chi grid
+  chi_rows_checked   chi rows compared; recorded, no floor (0 on a deck
+                     with no fissile nuclide)
+  unreferenced       scattering reactions and fission spectra of the
+                     sampled nuclides whose law no reference here covers;
+                     exact
+The configuration states the limit of sigma_gap, moment_gap and chi_gap
+(its `tolerance`: the 1e-8 of BASELINE.json, at the row's scale as the
+project's kernel and selfcheck comparisons measure it).
 """
 
 from __future__ import annotations
@@ -26,11 +35,13 @@ import zlib
 
 import numpy as np
 
+from . import chi as ref_chi
 from . import nuclide as ref_nuc
 from . import thermal as ref_thermal
 
 BOLTZMANN_EV_PER_K = 8.617333262e-5  # eV/K (CODATA)
 FORMAT_VERSION_PREFIX = "NDPP-TPU ASCII LIBRARY "
+FLOORS = ("rows_checked", "chi_rows_checked")  # numbers held from below; the rest from above
 
 
 def group_bounds(name: str) -> np.ndarray:
@@ -98,13 +109,13 @@ def limits(config: dict) -> dict:
     configuration's `tolerance` for the continuous gaps, at least one row."""
     rtol = float(config["tolerance"]["rtol"])
     return {"header_faults": 0, "quarantined": 0, "energy_gap": 0.0, "sigma_gap": rtol, "moment_gap": rtol,
-            "rows_checked": 1}
+            "rows_checked": 1, "chi_gap": rtol, "chi_rows_checked": 0, "unreferenced": 0}
 
 
 def failed(numbers: dict, lims: dict) -> list[str]:
-    """The numbers that miss their limits (rows_checked is a floor, the rest
-    ceilings)."""
-    return [k for k, lim in lims.items() if (numbers[k] < lim if k == "rows_checked" else numbers[k] > lim)]
+    """The numbers that miss their limits (FLOORS from below, the rest from
+    above)."""
+    return [k for k, lim in lims.items() if (numbers[k] < lim if k in FLOORS else numbers[k] > lim)]
 
 
 def header_faults(header, run: dict) -> int:
@@ -135,6 +146,13 @@ def block_header_faults(block, nuc, run: dict) -> int:
     faults += block.shapes.get("energy") != (nuc.energy.size,)
     faults += not np.array_equal(block.arrays.get("temperatures"), np.asarray(run["temperatures"], float))
     faults += not block.complete
+    if block.complete and ref_chi.spectra(nuc):
+        ne = nuc.energy.size
+        want = {"chi_energy": (ne,), "chi_prompt": (ne, ng), "chi_total": (ne, ng)}
+        if nuc.precursors and nuc.delayed_spectra:
+            want["chi_delayed"] = (ne, ng)
+        want.update({k: (ne,) for k in ref_chi.nu(nuc, nuc.energy[:1])})
+        faults += sum(block.shapes.get(k) != shape for k, shape in want.items())
     return int(faults)
 
 
@@ -145,10 +163,30 @@ def reference_rows(nuc, run: dict, rows: list[int], dtype=np.float64, device="cp
     sig, sigma_s = ref_nuc.cross_sections(nuc)
     out = {}
     for i in rows:
-        base = ref_nuc.zero_kelvin_row(nuc, i, bounds, order, clamp, sig, sigma_s, dtype)
+        base = ref_nuc.zero_kelvin_row(nuc, i, bounds, order, clamp, sig, sigma_s, dtype, run["include_yield"],
+                                       device)
         for t, temp in enumerate(run["temperatures"]):
             out[(t, i)] = ref_thermal.replace_row(nuc, run, i, temp, base, sig, sigma_s, bounds, dtype, device)
     return out
+
+
+def chi_numbers(blk, nuc, run: dict, dtype=np.float64) -> tuple[float, int]:
+    """(chi_gap, chi rows compared) of one block of a fissile nuclide: its
+    chi rows that reached the library, its nu arrays and chi grid whole."""
+    gap, n = 0.0, 0
+    if not ref_chi.spectra(nuc):
+        return gap, n
+    bounds = group_bounds(run["groups"])
+    idx = sorted({i for _, i in blk.chi_rows})
+    for key, r in ref_chi.rows(nuc, idx, bounds, run["clamp_outside"], dtype).items():
+        if key in blk.chi_rows:
+            gap = max(gap, row_gap(blk.chi_rows[key], r))
+            n += 1
+    want = dict(ref_chi.nu(nuc, nuc.energy), chi_energy=nuc.energy)
+    for k, r in want.items():
+        if k in blk.arrays:
+            gap = max(gap, rel_gap(blk.arrays[k], np.asarray(r, dtype=dtype)))
+    return gap, n
 
 
 def verify(run: dict, deck, passes, gate_failed: int, seed: int, n_nuclides: int,
@@ -168,6 +206,9 @@ def verify(run: dict, deck, passes, gate_failed: int, seed: int, n_nuclides: int
         "moment_gap": 0.0,
         "nuclides_checked": 0,
         "rows_checked": 0,
+        "chi_gap": 0.0,
+        "chi_rows_checked": 0,
+        "unreferenced": 0,
     }
     if not blocks:
         return numbers
@@ -201,6 +242,10 @@ def verify(run: dict, deck, passes, gate_failed: int, seed: int, n_nuclides: int
                             f"({ref_thermal.region(nuc, run, i, run['temperatures'][t])}) gap {g!r}")
             numbers["moment_gap"] = max(numbers["moment_gap"], g)
             numbers["rows_checked"] += 1
+        numbers["unreferenced"] += ref_nuc.unreferenced(nuc) + ref_chi.unreferenced(nuc)
+        gap, n = chi_numbers(blk, nuc, run, dtype)
+        numbers["chi_gap"] = max(numbers["chi_gap"], gap)
+        numbers["chi_rows_checked"] += n
         numbers["nuclides_checked"] += 1
     numbers["worst"] = worst[0]
     return numbers

@@ -19,6 +19,7 @@ import time
 import numpy as np
 
 from . import check
+from . import chi as ref_chi
 from . import nuclide as ref_nuc
 
 
@@ -31,7 +32,8 @@ def readings(config: dict, traffic: dict, seed: int, device: str = "cpu", dtype=
     nt, lp1, ng = len(run["temperatures"]), run["legendre_order"] + 1, int(run["groups"].rsplit("-", 1)[1])
     # The reference writes the headers the configuration states and quarantines nothing.
     numbers = {"header_faults": 0, "quarantined": 0, "energy_gap": 0.0, "sigma_gap": 0.0, "moment_gap": 0.0,
-               "rows_checked": 0}
+               "rows_checked": 0, "chi_gap": 0.0, "chi_rows_checked": 0, "unreferenced": 0}
+    bounds = check.group_bounds(run["groups"])
     for name, nuc in deck.nuclides.items():
         block = type("Block", (), {"name": name})()
         rows = choose(block, nuc.energy, (nt, nuc.energy.size, lp1, ng))
@@ -44,6 +46,14 @@ def readings(config: dict, traffic: dict, seed: int, device: str = "cpu", dtype=
         for key, r in ref.items():
             numbers["moment_gap"] = max(numbers["moment_gap"], check.row_gap(low[key].astype(np.float64), r))
         numbers["rows_checked"] += len(ref)
+        numbers["unreferenced"] += ref_nuc.unreferenced(nuc) + ref_chi.unreferenced(nuc)
+        chi_ref = ref_chi.rows(nuc, rows, bounds, run["clamp_outside"], np.float64)
+        chi_low = ref_chi.rows(nuc, rows, bounds, run["clamp_outside"], dtype)
+        for key, r in chi_ref.items():
+            numbers["chi_gap"] = max(numbers["chi_gap"], check.row_gap(chi_low[key].astype(np.float64), r))
+        for r in ref_chi.nu(nuc, nuc.energy).values() if chi_ref else ():
+            numbers["chi_gap"] = max(numbers["chi_gap"], check.rel_gap(np.asarray(r, dtype).astype(np.float64), r))
+        numbers["chi_rows_checked"] += len(chi_ref)
     return numbers
 
 

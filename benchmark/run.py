@@ -302,6 +302,7 @@ def run_cell(manifest: dict, cell: dict, config: dict, traffic: dict, seed: int,
     t_check = time.perf_counter()
     numbers = check_mod.verify(run, deck, lib.passes, gate.failed, seed, int(check["nuclides"]),
                                device=device)
+    check_s = time.perf_counter() - t_check
     limits = check_mod.limits(config)
     result = {
         "correct": not check_mod.failed(numbers, limits),
@@ -326,12 +327,13 @@ def run_cell(manifest: dict, cell: dict, config: dict, traffic: dict, seed: int,
     if numbers.get("worst"):
         print(numbers["worst"], file=sys.stderr)
     print(f"reader thread cpu_s {lib.thread_cpu_s} resident_peak_bytes {lib.peak_resident} "
-        f"check_s {time.perf_counter() - t_check} nuclides {numbers['nuclides_checked']}", file=sys.stderr)
+        f"check_s {check_s} nuclides {numbers['nuclides_checked']}", file=sys.stderr)
     print(f"setup_s {setup_s} " + (f"includes building {', '.join(built)}" if built else
                                    "built nothing: every kernel library was already built"), file=sys.stderr)
     for k, lim in limits.items():
-        rel = ">=" if k == "rows_checked" else "<="
+        rel = ">=" if k in check_mod.FLOORS else "<="
         print(f"check {k} {numbers[k]} {rel} {lim}", file=sys.stderr)
+    result["check_s"] = check_s
     result["check"] = {k: {"value": numbers[k], "limit": lim} for k, lim in limits.items()}
     if join:
         gate.release()

@@ -13,11 +13,18 @@ Faults, as this system can have them on one card:
   unchanged                    channel alone (every level's step adds
                                nothing); and, for a deck with free gas, the
                                free-gas replacement returns the 0 K rows
+On the small continuum-and-fission deck (benchmark/tests/small_decks.py):
+  a reaction left out          each nuclide's first continuum reaction
+                               adds nothing to the sum
+  an answer altered            the CM op's moments scaled by 1 + 1e-7
+                               where they come back
+  a step left out              the delayed spectra left out of chi_total
 (No exchange between chips: every cell runs on one card.)
 """
 
 from __future__ import annotations
 
+import json
 import tempfile
 from pathlib import Path
 
@@ -29,6 +36,7 @@ pytest.importorskip("ndpp_tpu_torch.driver")
 
 from benchmark import run as run_mod  # noqa: E402
 from benchmark.reference import control  # noqa: E402
+from benchmark.tests.small_decks import continuum_fission  # noqa: E402
 
 SEED = 2**31 + 4242
 
@@ -124,3 +132,60 @@ def test_control_is_not_correct(freegas):
 
     assert {"moment_gap", "sigma_gap", "energy_gap"} <= set(check.failed(n, check.limits(config)))
     assert np.isfinite(n["moment_gap"])
+
+
+def _run_continuum(seconds=3.0):
+    torch.set_num_threads(2)
+    manifest = json.loads((run_mod.ROOT / "BENCHMARK.json").read_text())
+    cell, config, traffic = continuum_fission()
+    with tempfile.TemporaryDirectory() as d:
+        return run_mod.run_cell(manifest, cell, config, traffic, SEED, seconds, False, "cpu", Path(d), join=True)
+
+
+def test_continuum_and_fission_sound_run_is_correct():
+    res = _run_continuum()
+    assert res["correct"], res["check"]
+    check = {k: v["value"] for k, v in res["check"].items()}
+    assert check["chi_rows_checked"] > 0 and check["unreferenced"] == 0
+    assert check["moment_gap"] < 1e-9 and check["chi_gap"] < 1e-13
+
+
+def _continuum_fault(monkeypatch, fault):
+    from ndpp_tpu_torch import continuum_driver, driver
+
+    if fault == "reaction_left_out":
+        inner = driver.batched_continuum_moments
+
+        def broken(nuc, rxn_rows, *args, **kwargs):
+            outs = inner(nuc, rxn_rows, *args, **kwargs)
+            return [np.zeros_like(outs[0])] + outs[1:]
+
+        monkeypatch.setattr(driver, "batched_continuum_moments", broken)
+    elif fault == "cm_scaled":
+        inner = continuum_driver.cm_moments_pointwise
+        monkeypatch.setattr(continuum_driver, "cm_moments_pointwise", lambda *a, **k: inner(*a, **k) * (1.0 + 1e-7))
+    else:
+        inner = driver.chi_collapse
+
+        def broken(res, *args, **kwargs):
+            inner(res, *args, **kwargs)
+            res.chi_total = res.chi_prompt.copy()
+
+        monkeypatch.setattr(driver, "chi_collapse", broken)
+
+
+@pytest.mark.parametrize("fault,number", [("reaction_left_out", "moment_gap"), ("cm_scaled", "moment_gap"),
+                                          ("delayed_left_out", "chi_gap")])
+def test_broken_continuum_or_chi_is_not_correct(monkeypatch, fault, number):
+    _continuum_fault(monkeypatch, fault)
+    res = _run_continuum()
+    assert not res["correct"]
+    assert res["check"][number]["value"] > res["check"][number]["limit"]
+
+
+def test_control_fails_on_continuum_and_chi():
+    _, config, traffic = continuum_fission()
+    n = control.readings(config, traffic, SEED)
+    from benchmark.reference import check
+
+    assert {"moment_gap", "chi_gap"} <= set(check.failed(n, check.limits(config)))
