@@ -40,8 +40,8 @@ never jax or the reference package, and proves in one process that:
   3c. CM-continuum kernel vs plain ([cmk] lines): cm_inner_moments on one
      tile each of the kalbach, law61cm (tabular angles, cross_edges) and
      nbody preparations, 256 rows each and 16 rows each (the decks' tile
-     size) as the continuum driver prepares them (the deck's nq_w/nq_y,
-     "lagrange" split, dense table), against cm_inner_moments_ref within the
+     size) as the continuum driver prepares them (its quadrature and group
+     split, dense table), against cm_inner_moments_ref within the
      same bound, with the tile's lanes, registers and shared memory path;
      timed, bounded and floored the same way; and two untimed check tiles
      (200 mu knots; row tables read through L2);
@@ -717,16 +717,16 @@ def cm_tiles(device, n_rows: int = CM_ROWS) -> dict:
     preparation in CM_FIXTURES, as the continuum driver prepares a tile:
     the reaction's rows from one below its threshold (cycled up to n_rows),
     knot tables padded to their power-of-two bucket, the driver's ksel rung,
-    its quadrature (nq_w/nq_y 12/8 with cross_edges for tabular angles, else
-    10/7), the "lagrange" split, P5 on the dense 361-group table, and the
-    plain path's chunk for a tile of this size. They are captured from
-    cm_moments_pointwise's call of the wrapper, which the capture then stops
-    (no launch). Returns {fixture: (args, chunk)}."""
+    its quadrature (continuum_driver.cm_quadrature; cross_edges for tabular
+    angles) and group split (CM_GROUP_SPLIT), P5 on the dense 361-group
+    table, and the plain path's chunk for a tile of this size. They are
+    captured from cm_moments_pointwise's call of the wrapper, which the
+    capture then stops (no launch). Returns {fixture: (args, chunk)}."""
     import numpy as np
     import torch
 
     from ndpp_tpu_torch import groups
-    from ndpp_tpu_torch.continuum_driver import _window_knot_bound, quantize_ksel
+    from ndpp_tpu_torch.continuum_driver import CM_GROUP_SPLIT, _window_knot_bound, cm_quadrature, quantize_ksel
     from ndpp_tpu_torch.host import unionize
     from ndpp_tpu_torch.host.ace import synth
     from ndpp_tpu_torch.host.prep_continuum import prepare_continuum
@@ -753,14 +753,14 @@ def cm_tiles(device, n_rows: int = CM_ROWS) -> dict:
         rows = rows[np.arange(n_rows) % rows.size]
         prep = prepare_continuum(nuc, rxn, rxn.energy_dists[0], rows, order)
         tab = angular == "tabular"
-        nq_w, nq_y = (12, 8) if tab else (10, 7)
+        nq_w, nq_y = cm_quadrature(angular, order)
         if energy == "nbody":
             k16, ksel = cont_ops.NBODY_KNOTS, 0
         else:
             k16 = unionize.bucket_pow2(prep.e_knots.shape[1])
             ksel = quantize_ksel(_window_knot_bound(prep.e, nuc.awr, prep.e_knots), k16)
         kmu = prep.mu_knots.size if tab else 0
-        npan = cont_ops.outer_panel_count(k16, gs.ng, angular, kmu, "lagrange", tab)
+        npan = cont_ops.outer_panel_count(k16, gs.ng, angular, kmu, CM_GROUP_SPLIT, tab)
         chunk = cont_ops.chunk_for(n_rows, nq_w, nq_y, cont_ops.inner_panel_count(k16, ksel, angular, kmu), npan)
 
         def capture(*args, chunk=None, key=fixture, lanes=None):
@@ -775,7 +775,7 @@ def cm_tiles(device, n_rows: int = CM_ROWS) -> dict:
                 put(prep.r_rows, k16) if kal else None, put(prep.a_rows, k16) if kal else None,
                 put(prep.mu_knots) if tab else None, put(prep.mu_pdf, k16) if tab else None,
                 put(prep.nbody_emax) if nb else None, float(prep.nbody_expo or 0.0), bounds, nuc.awr, order,
-                nq_w, nq_y, angular, energy, True, chunk, ksel, "lagrange", tab,
+                nq_w, nq_y, angular, energy, True, chunk, ksel, CM_GROUP_SPLIT, tab,
             )
         except Captured:
             pass

@@ -29,6 +29,33 @@ from ndpp_tpu_torch.utils.metrics import RunMetrics
 
 _CONTINUUM_TILE = 256  # rows per cm_moments_pointwise dispatch: one kernel launch on the card, chunked on the CPU
 
+# The CM path's outer w-panels end at every group boundary of the row's
+# window ("panels"): each panel's integrand is analytic, so its GL rule
+# converges and no group value rests on an interpolant. The G-independent
+# "lagrange" split takes group values from the degree nq_w - 1 interpolant
+# of each panel instead, and missed 1e-8 of a row's scale at 361 groups
+# and P5 where a panel is wide beside P_5's structure: 5.4e-8 on an N-body
+# (law 66) row near E'_lab = 0, 3.8e-8 on an actinide's Kalbach row at 20 MeV.
+CM_GROUP_SPLIT = "panels"
+
+
+def cm_quadrature(angular: str, order: int) -> tuple[int, int]:
+    """(nq_w, nq_y): the GL nodes per outer w-panel and per inner y-panel of
+    cm_moments_pointwise for a law kind at Legendre order `order`.
+
+    A heavy target's inner window [|w - s|, w + s] is 2s wide, under one
+    outgoing-knot spacing, so one inner panel carries the whole Kalbach
+    factor exp(a mu_cm) and P_L(mu_lab) over mu in [-1, 1]: 7 nodes missed
+    1e-8 of the row's scale by up to 3.2e-6 at P5 (U-235 (n,2n) at 20 MeV,
+    a up to 3.3). 12 nodes are exact through degree 23 (P_5 in y is degree
+    10, the pdf 2) and leave the exponential 11 degrees; above P5 the nodes
+    grow with the order. Tabular angles split their inner panels at the
+    mu-knot crossing roots and keep 8.
+    """
+    if angular == "tabular":
+        return 10, 8
+    return 10, max(12, order + 7)
+
 
 def _window_knot_bound(e_rows: np.ndarray, awr: float, e_knots: np.ndarray) -> int:
     """Static bound on data knots inside any [|w-s|, w+s] window (ksel).
@@ -82,9 +109,12 @@ def quantize_ksel(bound: int, k16: int) -> int:
 
 def _law_moments(
     prep: ContinuumPrepared, gs, order, cfg, awr: float, place: rows_mod.Placement, metrics=None,
-    ksel_override: int | None = None,
+    ksel_override: int | None = None, *, law: tuple,
 ) -> np.ndarray:
     """(NE, L+1, G) for one law (unweighted), its rows split over `place`.
+
+    law: (ENDF law, frame), the key the metrics' counters file the rows'
+    outer panels under.
 
     Each family's cap (4096, 1024, _CONTINUUM_TILE) is rows per shard at
     the default device.e_tile = 512 and scales with it, so the driver's
@@ -187,8 +217,8 @@ def _law_moments(
         # [E'_min, E'_max] is closed-form from the knot table and s —
         # narrow for exactly the heavy nuclides that dominate a library —
         # and the banded call both shrinks the bytes copied back (B/G of
-        # the dense row) and cuts the Lagrange boundary-cumulant work from
-        # G+1 to B+1 lookups. Wide-reach rows (a threshold reaction's top-E
+        # the dense row) and cuts the outer panels at B+1 boundaries
+        # instead of G+1. Wide-reach rows (a threshold reaction's top-E
         # rows see the whole structure) keep the dense dispatch.
         if clamp:
             if energy == "nbody":
@@ -203,45 +233,43 @@ def _law_moments(
             part = None
         subsets = _band_subsets(part, ne, ng, gs)
         # Tabular-angle payloads carry data-knot-crossing C^1 kinks whose
-        # closed-form w-images are outer panel EDGES (cross_edges), so every
-        # panel's integrand is analytic and the G-independent lagrange split
-        # converges spectrally at nq_w 12 / nq_y 8. Kalbach/nbody integrands
-        # are smooth in w and run the lagrange split at nq_w 10 / nq_y 7
-        # (the reference's production-shape gates; the orders are part of
-        # the result, so the port keeps them).
-        nq_w, nq_y = (12, 8) if angular == "tabular" else (10, 7)
+        # closed-form w-images are outer panel edges too (cross_edges).
+        tab = angular == "tabular"
+        nq_w, nq_y = cm_quadrature(angular, order)
         sy = cont_ops.inner_panel_count(ke, ksel, angular, kmu)
         budget = cont_ops.CHUNK_BUDGET_BYTES * e_tile // 512  # shrinks with the OOM retry's e_tile
         pending = []
         finals = []
-        with RunMetrics.span_or_null(metrics, "dispatch.continuum"):
-            for idx, gw, g0s, b_rows in subsets:
-                plan = place.plan(idx.size, _CONTINUUM_TILE, e_tile)
-                e_d = plan.put(prep.e[idx])
-                dev = {name: None if a is None else plan.put(a[idx]) for name, a in host.items()}
-                b_d = None if b_rows is None else plan.put(b_rows)
-                buf = np.empty((idx.size, order + 1, gw))
-                finals.append((idx, g0s, buf))
-                npan = cont_ops.outer_panel_count(ke, gw, angular, kmu, "lagrange", angular == "tabular")
-                for k, sl, start, length in plan.pieces:
-                    cut = {name: None if a is None else a[k][sl] for name, a in dev.items()}
-                    # outer panels per pass of the plain (CPU) path; the CUDA kernel takes the tile whole
-                    chunk = cont_ops.chunk_for(length, nq_w, nq_y, sy, npan, budget)
+        with RunMetrics.span_or_null(metrics, "continuum.kernel"):
+            with RunMetrics.span_or_null(metrics, "dispatch.continuum"):
+                for idx, gw, g0s, b_rows in subsets:
+                    plan = place.plan(idx.size, _CONTINUUM_TILE, e_tile)
+                    e_d = plan.put(prep.e[idx])
+                    dev = {name: None if a is None else plan.put(a[idx]) for name, a in host.items()}
+                    b_d = None if b_rows is None else plan.put(b_rows)
+                    buf = np.empty((idx.size, order + 1, gw))
+                    finals.append((idx, g0s, buf))
+                    npan = cont_ops.outer_panel_count(ke, gw, angular, kmu, CM_GROUP_SPLIT, tab)
                     if metrics is not None:
-                        metrics.continuum_chunks[chunk] += 1
-                    with place.shard(k):
-                        res = cm_moments_pointwise(
-                            e_d[k][sl], cut["kn"], cut["pd"], cut["rr"], cut["aa"],
-                            None if muk is None else muk[k], cut["mup"], cut["emax"],
-                            float(prep.nbody_expo or 0.0),
-                            bounds[k] if b_d is None else b_d[k][sl],
-                            awr, order, nq_w, nq_y, angular, energy, clamp, chunk, ksel,
-                            "lagrange", angular == "tabular",
-                            lanes=cont_ops.cm_tile_lanes(plan.tile_rows(start), npan * nq_w, place.devices[k]),
-                        )
-                        pending.append((buf, start, length, place.fetch(res)))
-        with RunMetrics.span_or_null(metrics, "wait.continuum"):
-            place.land(pending, "continuum")
+                        metrics.continuum_outer_panels[law] += idx.size * npan
+                    for k, sl, start, length in plan.pieces:
+                        cut = {name: None if a is None else a[k][sl] for name, a in dev.items()}
+                        # outer panels per pass of the plain (CPU) path; the CUDA kernel takes the tile whole
+                        chunk = cont_ops.chunk_for(length, nq_w, nq_y, sy, npan, budget)
+                        if metrics is not None:
+                            metrics.continuum_chunks[chunk] += 1
+                        with place.shard(k):
+                            res = cm_moments_pointwise(
+                                e_d[k][sl], cut["kn"], cut["pd"], cut["rr"], cut["aa"],
+                                None if muk is None else muk[k], cut["mup"], cut["emax"],
+                                float(prep.nbody_expo or 0.0),
+                                bounds[k] if b_d is None else b_d[k][sl],
+                                awr, order, nq_w, nq_y, angular, energy, clamp, chunk, ksel, CM_GROUP_SPLIT, tab,
+                                lanes=cont_ops.cm_tile_lanes(plan.tile_rows(start), npan * nq_w, place.devices[k]),
+                            )
+                            pending.append((buf, start, length, place.fetch(res)))
+            with RunMetrics.span_or_null(metrics, "wait.continuum"):
+                place.land(pending, "continuum")
         for idx, g0s, buf in finals:
             out[idx] = banding.densify(buf, g0s, ng)
         return out
@@ -332,30 +360,33 @@ def batched_continuum_moments(
     """
     place = rows_mod.as_placement(place)
     totals = [np.zeros((e_rows.size, order + 1, gs.ng)) for _, e_rows in rxn_rows]
-    entries: list[tuple[int, ContinuumPrepared]] = []
+    entries: list[tuple[int, tuple, ContinuumPrepared]] = []
     for ri, (rxn, e_rows) in enumerate(rxn_rows):
         if not rxn.energy_dists:
             raise AceFormatError(f"MT={rxn.mt}: no energy distribution")
         for ed in rxn.energy_dists:
             with RunMetrics.span_or_null(metrics, "prep.continuum"):
                 prep = prepare_continuum(nuc, rxn, ed, e_rows, order)
-            if metrics is not None and prep.padded_elements:
-                metrics.record_padding(prep.real_elements, prep.padded_elements)
-            entries.append((ri, prep))
+            law = (ed.law, rxn.frame)
+            if metrics is not None:
+                metrics.continuum_rows[law] += prep.e.size
+                if prep.padded_elements:
+                    metrics.record_padding(prep.real_elements, prep.padded_elements)
+            entries.append((ri, law, prep))
 
-    pools: dict[tuple, list[tuple[int, ContinuumPrepared]]] = {}
-    for ri, prep in entries:
+    pools: dict[tuple, list[tuple[int, tuple, ContinuumPrepared]]] = {}
+    for ri, law, prep in entries:
         key = _pool_class(prep)
         if key is None:
-            mom = _law_moments(prep, gs, order, cfg, nuc.awr, place, metrics)
+            mom = _law_moments(prep, gs, order, cfg, nuc.awr, place, metrics, law=law)
             totals[ri] += prep.applicability[:, None, None] * mom
         else:
-            pools.setdefault(key, []).append((ri, prep))
+            pools.setdefault(key, []).append((ri, law, prep))
 
     for (kind, k16), members in sorted(pools.items()):
         if len(members) == 1:
-            ri, prep = members[0]
-            mom = _law_moments(prep, gs, order, cfg, nuc.awr, place, metrics)
+            ri, law, prep = members[0]
+            mom = _law_moments(prep, gs, order, cfg, nuc.awr, place, metrics, law=law)
             totals[ri] += prep.applicability[:, None, None] * mom
             continue
         ksel = None
@@ -364,13 +395,16 @@ def batched_continuum_moments(
                 # per-item bounds on UNPADDED knots, combined as the max —
                 # then the same hard quantization as the single-law path
                 need = max(
-                    _window_knot_bound(p.e, nuc.awr, p.e_knots) or k16 for _, p in members
+                    _window_knot_bound(p.e, nuc.awr, p.e_knots) or k16 for _, _, p in members
                 )
                 ksel = quantize_ksel(need, k16)
-        pooled = _pooled_prep(kind, k16, [p for _, p in members])
-        mom_all = _law_moments(pooled, gs, order, cfg, nuc.awr, place, metrics, ksel_override=ksel)
+        pooled = _pooled_prep(kind, k16, [p for _, _, p in members])
+        # a pool holds one preparation kind: cm-kalbach is law 44 alone, and
+        # lab-tabular rows integrate no outer panels
+        mom_all = _law_moments(pooled, gs, order, cfg, nuc.awr, place, metrics, ksel_override=ksel,
+                               law=members[0][1])
         off = 0
-        for ri, prep in members:
+        for ri, _, prep in members:
             mom = mom_all[off : off + prep.e.size]
             if kind == "lab-tabular" and prep.extra.get("disc") is not None:
                 mom = mom.copy()  # the pooled buffer slice is shared

@@ -161,8 +161,10 @@ def check_continuum(device="cuda", rows: int = 16, k: int = 32, ng: int = PROD_N
     """Continuum gate at production shape: rows whose outgoing support
     straddles the top group boundary, light and heavy AWR, and both angular
     payloads the sweep dispatches (Kalbach and tabular-angle). Each leg: the
-    Lagrange split at production quadrature against the boundary-edged
-    panels split at higher quadrature."""
+    continuum driver's group split and quadrature (CM_GROUP_SPLIT,
+    cm_quadrature) against the boundary-edged panels split at 16 nodes a
+    panel."""
+    from ndpp_tpu_torch.continuum_driver import CM_GROUP_SPLIT, cm_quadrature
     from ndpp_tpu_torch.ops.continuum import cm_moments_pointwise
 
     dev = torch.device(device)
@@ -189,7 +191,8 @@ def check_continuum(device="cuda", rows: int = 16, k: int = 32, ng: int = PROD_N
         muk = t(np.array([-1.0, 1.0]))
         mup = torch.zeros((rows, k, 2), dtype=torch.float64, device=dev)
         common = (t(e), t(kn), t(pd), t(rr), t(aa), muk, mup, zeros, 0.0, bounds, awr, order)
-        got = cm_moments_pointwise(*common, 10, 7, "kalbach", "tabular", True, 8, 0, "lagrange")
+        got = cm_moments_pointwise(*common, *cm_quadrature("kalbach", order), "kalbach", "tabular", True, 8, 0,
+                                   CM_GROUP_SPLIT)
         ref = cm_moments_pointwise(*common, 16, 16, "kalbach", "tabular", True, 8, 0, "panels")
         gates.append(_family_gate(got, ref))
 
@@ -204,12 +207,12 @@ def check_continuum(device="cuda", rows: int = 16, k: int = 32, ng: int = PROD_N
         ref0 = cm_moments_pointwise(*small, 8, 8, "isotropic", "tabular", True, 8, 0, "lagrange")
         small_gates.append(_family_gate(got0, ref0))
 
-    # tabular-angle leg (law 61-class payload) at the driver's nq_w = 16:
-    # the production setting (lagrange 12/8 with the K x KMU crossing-image
-    # edges) against the boundary-edged panels split at 16/8, also with
-    # crossing edges. With every crossing image an outer panel edge both
-    # splits converge spectrally on this rough payload, so this leg holds
-    # the full 1e-8 metric, absolute and relative-significant.
+    # tabular-angle leg (law 61-class payload): the production setting
+    # (with the K x KMU crossing-image edges) against the boundary-edged
+    # panels split at 16/8, also with crossing edges. With every crossing
+    # image an outer panel edge both converge spectrally on this rough
+    # payload, so this leg holds the full 1e-8 metric, absolute and
+    # relative-significant.
     awr = 55.4
     e, kn, pd, _, _ = payload(awr)
     kmu = 9
@@ -219,7 +222,8 @@ def check_continuum(device="cuda", rows: int = 16, k: int = 32, ng: int = PROD_N
     mup_t /= np.trapezoid(mup_t, muk_t, axis=2)[:, :, None]
     zk = torch.zeros((rows, k), dtype=torch.float64, device=dev)
     common_t = (t(e), t(kn), t(pd), zk, zk, t(muk_t), t(mup_t), zeros, 0.0, bounds, awr, order)
-    got_t = cm_moments_pointwise(*common_t, 12, 8, "tabular", "tabular", True, 8, 0, "lagrange", True)
+    got_t = cm_moments_pointwise(*common_t, *cm_quadrature("tabular", order), "tabular", "tabular", True, 8, 0,
+                                 CM_GROUP_SPLIT, True)
     ref_t = cm_moments_pointwise(*common_t, 16, 8, "tabular", "tabular", True, 8, 0, "panels", True)
     g_t = _family_gate(got_t, ref_t)
     g_t["ok"] = bool(g_t["ok"] and g_t["max_rel_significant"] <= 1e-8)

@@ -39,6 +39,11 @@ class RunMetrics:
     # with it (continuum_driver picks the chunk from a byte budget; only the
     # plain CPU path reads it, the CUDA kernel takes a tile whole)
     continuum_chunks: Counter = field(default_factory=Counter, repr=False)
+    # (ENDF law, frame) -> continuum rows prepared, and -> outer w-panels of
+    # the CM path's cm_moments_pointwise (rows x the tile's panels a row,
+    # dead panels included), recorded by continuum_driver
+    continuum_rows: Counter = field(default_factory=Counter, repr=False)
+    continuum_outer_panels: Counter = field(default_factory=Counter, repr=False)
 
     def span(self, name: str):
         return self.timers.span(name)

@@ -683,3 +683,21 @@ def test_cm_kernel_orders_cross_every_bucket_on_the_card(variant, order):
     torch.cuda.synchronize()
     assert got.shape[-1] == order + 1 and not nb
     _row_close(got.cpu(), t_cont.cm_inner_moments_ref(*args, chunk=chunk).cpu(), atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["kalbach", "nbody"])
+def test_cm_kernel_matches_plain_version_on_the_deployment_rows(which, tmp_path):
+    """The fast deployment's rows of tests/test_torch_continuum_deployment.py
+    (U-238's Kalbach (n,2n) at its top 8 incident rows, 47 groups, P3;
+    H-2's N-body (n,2n) near E'_lab = 0, 361 groups, P5) through the
+    continuum driver on the card and on the CPU: the kernel against its
+    plain version within 1e-12 of each row's scale."""
+    _need_card()
+    import test_torch_continuum_deployment as dep
+
+    case = dep.KALBACH_CASES[0] if which == "kalbach" else dep.NBODY_CASE
+    before = t_cont.cm_inner_moments.launches
+    got = dep.port_rows(case, tmp_path / "cuda", "cuda")[2]
+    assert t_cont.cm_inner_moments.launches > before
+    _row_close(got, dep.port_rows(case, tmp_path / "cpu", "cpu")[2], atol=0.0)
