@@ -33,7 +33,7 @@ from ndpp_tpu_torch.host.ace.parse import read_ace
 from ndpp_tpu_torch.host.ace.records import Nuclide, Reaction
 from ndpp_tpu_torch.host.ace.thermal import ThermalTable
 from ndpp_tpu_torch.host.prep import prepare_twobody
-from ndpp_tpu_torch.io.library import NuclideResult, open_writers
+from ndpp_tpu_torch.io.library import AsciiLibraryWriter, NuclideResult, open_writers
 from ndpp_tpu_torch.ops.twobody import twobody_moments
 from ndpp_tpu_torch.parallel import rows as rows_mod
 from ndpp_tpu_torch.thermal_driver import apply_sab, match_tables, resolve_tables, sab_e_max
@@ -604,6 +604,10 @@ def run(cfg: RunConfig, device="cuda", debug_nans: bool = False) -> RunMetrics:
             timers.add(k, v)
         metrics.phase_seconds = timers.report()
         metrics.capture_device_mem(cards)
+        for w in writers:
+            if isinstance(w, AsciiLibraryWriter):
+                metrics.ascii_values_native += w.values_native
+                metrics.ascii_values_python += w.values_python
         for w in writers:
             w.finalize(metrics.to_dict())
     log.info("run complete: %s", metrics.json_line())

@@ -24,6 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ndpp_tpu_torch import native
 from ndpp_tpu_torch.groups import GroupStructure
 from ndpp_tpu_torch.version import LIBRARY_FORMAT_VERSION, __version__
 
@@ -149,8 +150,22 @@ class HDF5LibraryWriter:
         self.f.close()
 
 
+# Values one call of the native formatter turns into text: a multiple of 4,
+# so each chunk but an array's last ends on a whole line (16,384 lines, 1.7
+# MB of text). A whole array is never held as text: U-235's scatter is about
+# 120 MB of it.
+_CHUNK = 1 << 16
+_LINE = 4 * 26 + 1  # a full value line: four values of width 26 and its newline
+
+
 class AsciiLibraryWriter:
-    """Mirror of the HDF5 content in a fixed, line-oriented text format (docs/format.md)."""
+    """Mirror of the HDF5 content in a fixed, line-oriented text format (docs/format.md).
+
+    Value lines come from the native formatter (native/ascii_format.cpp),
+    built here so that a run pays for it in its set-up, or, without it, from
+    the Python loop; both write the same bytes. values_native and
+    values_python count the values each path formatted.
+    """
 
     def __init__(
         self,
@@ -163,6 +178,10 @@ class AsciiLibraryWriter:
     ):
         self.path = Path(path)
         self.path.parent.mkdir(parents=True, exist_ok=True)
+        self._formatter = native.formatter()
+        self._text = np.empty(_LINE * _CHUNK // 4, dtype=np.uint8) if self._formatter is not None else None
+        self.values_native = 0
+        self.values_python = 0
         self._complete: set[str] = set()
         if resume and self.path.exists():
             # Resume bookkeeping: a nuclide is complete iff its block closed
@@ -186,13 +205,24 @@ class AsciiLibraryWriter:
                 w("group_provenance " + json.dumps(gs.meta, sort_keys=True) + "\n")
 
     def _write_array(self, arr: np.ndarray) -> None:
-        # 17 significant digits: a float64 round-trips exactly through the
-        # text form, so HDF5 and ASCII twins compare bit-equal (format 1.1).
-        # Width 26, not 25: sign + 19-char mantissa + E+3-digit exponent is
-        # 25 chars, and a zero-width separator glues tokens together.
-        flat = np.asarray(arr).ravel()
-        for i in range(0, flat.size, 4):
-            self.fh.write("".join(f"{v:26.17E}" for v in flat[i : i + 4]) + "\n")
+        # 17 digits after the point, 18 significant: a float64 round-trips
+        # exactly through the text form, so HDF5 and ASCII twins compare
+        # bit-equal (format 1.1). Width 26, not 25: sign + 19-char mantissa +
+        # E+3-digit exponent is 25 chars, and a zero-width separator glues
+        # tokens together. The token in full: native/ascii_format.cpp.
+        if self._formatter is None:
+            flat = np.asarray(arr).ravel()
+            for i in range(0, flat.size, 4):
+                self.fh.write("".join(f"{v:26.17E}" for v in flat[i : i + 4]) + "\n")
+            self.values_python += flat.size
+            return
+        flat = np.ascontiguousarray(arr, dtype=np.float64).reshape(-1)
+        self.fh.flush()  # the text layer's lines reach the binary buffer first
+        for i in range(0, flat.size, _CHUNK):
+            part = flat[i : i + _CHUNK]
+            n = self._formatter.ndpp_format_values(part.ctypes.data, part.size, self._text.ctypes.data)
+            self.fh.buffer.write(self._text[:n])
+        self.values_native += flat.size
 
     def is_complete(self, name: str) -> bool:
         return name in self._complete

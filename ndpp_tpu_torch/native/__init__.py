@@ -3,16 +3,20 @@
 
   ace_tokenizer  whitespace-float tokenization of ACE ASCII tables (the
                  host-parse hot path at library scale)
+  ascii_format   the ASCII library's value lines, byte for byte the text of
+                 the writer's Python loop (io/library.AsciiLibraryWriter;
+                 the writer thread's hot path, run without the interpreter
+                 lock)
 
-The shared library is compiled with g++ from the package's source into
+Each shared library is compiled with g++ from the package's source into
 utils.build.build_dir() (build/ndpp_tpu_torch/ at the root of a source
 checkout, the per-user cache for an installed package), keyed by the
 source's hash; no binary is kept in the repository. As in the reference, g++
 is optional: when it is missing or the build fails, the parse takes numpy's
-path, and the first such parse logs why (once per process). build() itself
-raises NdppError with the compiler's output. NDPP_TPU_NO_NATIVE=1 selects
-the numpy path outright, and a token the native parser refuses is re-parsed
-by numpy for its error message.
+path and the writer formats in Python, and the first such use logs why
+(once per process and library). build() itself raises NdppError with the
+compiler's output. NDPP_TPU_NO_NATIVE=1 selects those paths outright, and a
+token the native parser refuses is re-parsed by numpy for its error message.
 """
 
 from __future__ import annotations
@@ -32,58 +36,85 @@ from ndpp_tpu_torch.utils.build import build_dir
 from ndpp_tpu_torch.utils.errors import NdppError
 
 _SRC = Path(__file__).resolve().parent / "ace_tokenizer.cpp"
+_FORMAT_SRC = _SRC.with_name("ascii_format.cpp")
 _BUILD_DIR = build_dir()
-_FLAGS = ["-O3", "-shared", "-fPIC"]
-# The driver parses ACE files on two prefetch threads: the first use builds
-# and loads the library under this lock, once per process. None in the list
-# records a build or load that failed: the numpy path, without a retry.
+_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+# Per source stem: what the library is, the path taken without it, and the
+# ctypes signatures of its C functions.
+_BINDINGS = {
+    "ace_tokenizer": ("native tokenizer", "ACE parsing takes numpy's path", {
+        "ndpp_tokenize": (ctypes.c_longlong, [ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_double),
+                                              ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t)]),
+        "ndpp_count_tokens": (ctypes.c_longlong, [ctypes.c_char_p, ctypes.c_size_t]),
+    }),
+    "ascii_format": ("native formatter", "the ASCII writer formats each value in Python", {
+        "ndpp_format_values": (ctypes.c_size_t, [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]),
+    }),
+}
+# The driver parses ACE files on two prefetch threads: the first use of a
+# library builds and loads it under this lock, once per process. None
+# records a build or load that failed: the fallback path, without a retry.
 _LOCK = threading.Lock()
-_LIB: list[ctypes.CDLL | None] = []
+_LIB: dict[Path, ctypes.CDLL | None] = {}
+_FORMATTER_OFF_LOGGED = False
 
 
-def build() -> Path:
-    """Compile ace_tokenizer.cpp unless a library built from the same source
-    bytes and flags exists; returns its path."""
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(_FLAGS).encode()).hexdigest()[:16]
-    path = _BUILD_DIR / f"ace_tokenizer-{digest}.so"
+def build(src: Path | None = None) -> Path:
+    """Compile the native source `src` (the tokenizer's by default) unless a
+    library built from the same source bytes and flags exists; returns its
+    path."""
+    src = _SRC if src is None else src
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_FLAGS).encode()).hexdigest()[:16]
+    path = _BUILD_DIR / f"{src.stem}-{digest}.so"
     if path.exists():
         return path
     cxx = shutil.which("g++")
     if cxx is None:
-        raise NdppError("native tokenizer: g++ not found on PATH")
+        raise NdppError(f"native {src.name}: g++ not found on PATH")
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run([cxx, *_FLAGS, "-o", str(tmp), str(_SRC)], capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([cxx, *_FLAGS, "-o", str(tmp), str(src)], capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise NdppError(f"native tokenizer: g++ failed ({proc.returncode}):\n{(proc.stdout + proc.stderr)[-4000:]}")
+        raise NdppError(f"native {src.name}: g++ failed ({proc.returncode}):\n{(proc.stdout + proc.stderr)[-4000:]}")
     os.replace(tmp, path)  # atomic: another process building at once never sees a partial file
     return path
 
 
-def library() -> ctypes.CDLL | None:
-    """The loaded tokenizer library, built on first use (thread-safe); None
-    when it cannot be built or loaded (logged once)."""
+def library(src: Path | None = None) -> ctypes.CDLL | None:
+    """The loaded library of `src` (the tokenizer's by default), built on
+    first use (thread-safe); None when it cannot be built or loaded (logged
+    once)."""
+    src = _SRC if src is None else src
     with _LOCK:
-        if not _LIB:
+        if src not in _LIB:
+            what, fallback, signatures = _BINDINGS[src.stem]
             try:
-                lib = ctypes.CDLL(str(build()))
+                lib = ctypes.CDLL(str(build(src)))
             except (NdppError, OSError, subprocess.SubprocessError) as e:
-                log_mod.get().warning("native tokenizer unavailable, ACE parsing takes numpy's path: %s", e)
-                _LIB.append(None)
-                return None
-            lib.ndpp_tokenize.restype = ctypes.c_longlong
-            lib.ndpp_tokenize.argtypes = [
-                ctypes.c_char_p,
-                ctypes.c_size_t,
-                ctypes.POINTER(ctypes.c_double),
-                ctypes.c_size_t,
-                ctypes.POINTER(ctypes.c_size_t),
-            ]
-            lib.ndpp_count_tokens.restype = ctypes.c_longlong
-            lib.ndpp_count_tokens.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
-            _LIB.append(lib)
-        return _LIB[0]
+                log_mod.get().warning("%s unavailable, %s: %s", what, fallback, e)
+                lib = None
+            else:
+                for name, (restype, argtypes) in signatures.items():
+                    fn = getattr(lib, name)
+                    fn.restype, fn.argtypes = restype, argtypes
+            _LIB[src] = lib
+        return _LIB[src]
+
+
+def formatter() -> ctypes.CDLL | None:
+    """The ASCII writer's value formatter (ascii_format.cpp,
+    `ndpp_format_values`), built on first use; None under
+    NDPP_TPU_NO_NATIVE=1 or when it cannot be built, the reason logged once
+    per process."""
+    global _FORMATTER_OFF_LOGGED
+    if not os.environ.get("NDPP_TPU_NO_NATIVE"):
+        return library(_FORMAT_SRC)
+    with _LOCK:
+        if not _FORMATTER_OFF_LOGGED:
+            _FORMATTER_OFF_LOGGED = True
+            log_mod.get().warning("native formatter off (NDPP_TPU_NO_NATIVE=1), %s", _BINDINGS["ascii_format"][1])
+    return None
 
 
 def tokenize_floats(text: str | bytes) -> np.ndarray:

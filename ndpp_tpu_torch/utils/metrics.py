@@ -44,6 +44,10 @@ class RunMetrics:
     # dead panels included), recorded by continuum_driver
     continuum_rows: Counter = field(default_factory=Counter, repr=False)
     continuum_outer_panels: Counter = field(default_factory=Counter, repr=False)
+    # values the ASCII writers formatted by the native formatter and by the
+    # Python loop (its fallback), summed at run end by driver.run
+    ascii_values_native: int = 0
+    ascii_values_python: int = 0
 
     def span(self, name: str):
         return self.timers.span(name)
@@ -84,6 +88,8 @@ class RunMetrics:
             "padding_efficiency": self.padding_efficiency,
             "device_mem_highwater_bytes": self.device_mem_highwater_bytes,
             "phase_seconds": self.phase_seconds,
+            "ascii_values_native": self.ascii_values_native,
+            "ascii_values_python": self.ascii_values_python,
         }
 
     def json_line(self) -> str:

@@ -126,7 +126,7 @@ def test_first_use_from_many_threads_builds_once(tmp_path, monkeypatch):
     from concurrent.futures import ThreadPoolExecutor
 
     monkeypatch.setattr(t_native, "_BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(t_native, "_LIB", [])
+    monkeypatch.setattr(t_native, "_LIB", {})
     start = threading.Barrier(8)
 
     def first_use(i):

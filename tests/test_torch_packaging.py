@@ -4,8 +4,9 @@ A wheel built from the files git ships carries the port's CUDA and C++
 sources (pyproject.toml's package data); installed into a directory of its
 own, the package builds the ACE tokenizer into the per-user cache
 ($XDG_CACHE_HOME/ndpp_tpu_torch), never beside site-packages. With no g++ on
-PATH the tokenizer cannot be built: ACE parsing takes numpy's path, as the
-reference's does, and a deck runs to the end with nothing quarantined.
+PATH neither the tokenizer nor the ASCII formatter can be built: ACE parsing
+takes numpy's path, as the reference's does, the writer formats in Python,
+and a deck runs to the end with nothing quarantined.
 """
 
 import logging
@@ -36,6 +37,7 @@ SOURCES = [
     "ndpp_tpu_torch/csrc/freegas_sab.cu",
     "ndpp_tpu_torch/csrc/cm_pointwise.cu",
     "ndpp_tpu_torch/native/ace_tokenizer.cpp",
+    "ndpp_tpu_torch/native/ascii_format.cpp",
 ]
 
 
@@ -134,13 +136,14 @@ def test_deck_without_gxx_parses_with_numpy(tmp_path, monkeypatch, log_messages)
     (empty / "python3").symlink_to(sys.executable)
     monkeypatch.setenv("PATH", str(empty))
     monkeypatch.setattr(native, "_BUILD_DIR", tmp_path / "nobuild")  # no library built before
-    monkeypatch.setattr(native, "_LIB", [])
+    monkeypatch.setattr(native, "_LIB", {})
     assert shutil.which("g++") is None
     log_messages.clear()
     np.testing.assert_array_equal(native.tokenize_floats("1 2.5e-3"), [1.0, 2.5e-3])
     numpy_path = run("numpy")
-    assert native._LIB == [None]  # tried once, not again on every parse
+    assert native._LIB == {native._SRC: None, native._FORMAT_SRC: None}  # tried once, not again on every parse
     assert sum(m.startswith("native tokenizer unavailable") for m in log_messages) == 1
+    assert sum(m.startswith("native formatter unavailable") for m in log_messages) == 1
     assert not (tmp_path / "nobuild").exists()
     report = compare(numpy_path, with_native, rtol=0.0, atol=0.0)
     assert report["match"], report
