@@ -12,16 +12,20 @@ Every kernel family's outgoing-energy support is closed-form on the host:
 Rows are dispatched against per-row boundary windows (B+1 boundaries, B
 from the same ladder as the reference so both packages split the same
 rows), the ops emit (T, L+1, B), and the copied-back banded block is
-densified host-side. Window coverage of the support plus the clamp
-convention (edge groups absorb out-of-domain mass) make banded == dense
-at roundoff (tests/test_torch_continuum_ops.py).
+densified host-side (dispatch below, for the continuum and chi paths).
+Window coverage of the support plus the clamp convention (edge groups
+absorb out-of-domain mass) make banded == dense at roundoff
+(tests/test_torch_continuum_ops.py).
 """
 
 from __future__ import annotations
 
+from collections.abc import Callable
+
 import numpy as np
 
 from ndpp_tpu_torch.host import unionize
+from ndpp_tpu_torch.utils.metrics import RunMetrics
 
 
 def plan(lo: np.ndarray, hi: np.ndarray, bounds: np.ndarray, lo_bucket: int = 16):
@@ -115,3 +119,50 @@ def densify(mom: np.ndarray, g0: np.ndarray | None, ng: int) -> np.ndarray:
     cols = g0[:, None] + np.arange(gw)[None, :]
     out[np.arange(n)[:, None, None], np.arange(lp1)[None, :, None], cols[:, None, :]] = mom
     return out
+
+
+def subsets(part, ne: int, bounds: np.ndarray) -> list[tuple]:
+    """Dispatch subsets [(row idx, out width, g0 | None, window bounds | None)].
+
+    part: a partition() result, or None. One banded subset (the narrow rows)
+    plus one dense subset (the wide rows, when there are any), or a single
+    dense subset of all ne rows when part is None.
+    """
+    ng = bounds.size - 1
+    if part is None:
+        return [(np.arange(ne), ng, None, None)]
+    narrow, b_w, g0f = part
+    nidx = np.nonzero(narrow)[0]
+    out = [(nidx, b_w, g0f[nidx], window_bounds(bounds, g0f[nidx], b_w))]
+    didx = np.nonzero(~narrow)[0]
+    if didx.size:
+        out.append((didx, ng, None, None))
+    return out
+
+
+def dispatch(
+    place, part, bounds: np.ndarray, cap: int, e_tile: int, out: np.ndarray, op: Callable, *rows,
+    metrics=None, family: str,
+) -> None:
+    """The rows of out (N, L+1, G) dispatched over `place` by band subset,
+    landed, and densified into out.
+
+    Each subset of subsets(part, N, bounds) is one RowPlan at `cap` rows per
+    shard; rows are host operands (N, ...) or None, cut to the subset.
+    op(piece, *row slices, window) returns the piece's (T, L+1, B) result,
+    window being the piece's (T, B+1) window bounds in a banded subset and
+    None in a dense one (the op then reads the shared (G+1,) bounds). Spans
+    dispatch.<family> and wait.<family>; one wait for every subset.
+    """
+    pending, finals = [], []
+    with RunMetrics.span_or_null(metrics, f"dispatch.{family}"):
+        for idx, gw, g0s, b_rows in subsets(part, out.shape[0], bounds):
+            buf = np.empty((idx.size, out.shape[1], gw))
+            finals.append((idx, g0s, buf))
+            place.plan(idx.size, cap, e_tile).dispatch(
+                op, buf, pending, *(None if a is None else a[idx] for a in rows), b_rows
+            )
+    with RunMetrics.span_or_null(metrics, f"wait.{family}"):
+        place.land(pending, family)
+    for idx, g0s, buf in finals:
+        out[idx] = densify(buf, g0s, bounds.size - 1)

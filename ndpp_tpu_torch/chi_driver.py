@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ndpp_tpu_torch import banding
-from ndpp_tpu_torch.continuum_driver import _add_discrete_lines, _band_subsets
+from ndpp_tpu_torch.continuum_driver import ANALYTIC_TILE, TABULAR_TILE, add_discrete_lines
 from ndpp_tpu_torch.host import unionize
 from ndpp_tpu_torch.host.prep_continuum import ContinuumPrepared, prepare_continuum
 from ndpp_tpu_torch.ops.chi import analytic_group_fractions, tabular_group_fractions
@@ -38,16 +38,14 @@ def _law_fractions(prep, gs, cfg, place: rows_mod.Placement, metrics=None) -> np
     clamp = cfg.clamp_outside
     out = np.zeros((ne, gs.ng))
     if prep.kind == "lab-analytic":
-        plan = place.plan(ne, 4096, cfg.device.e_tile)
         pending = []
         with RunMetrics.span_or_null(metrics, "dispatch.chi"):
-            e_d, th_d, b_d = (plan.put(a) for a in (prep.e, prep.extra["theta"], prep.extra["b"]))
-            for k, sl, start, length in plan.pieces:
-                with place.shard(k):
-                    frac = analytic_group_fractions(
-                        e_d[k][sl], th_d[k][sl], b_d[k][sl], prep.extra["u"], bounds[k], prep.extra["law"], clamp
-                    )
-                    pending.append((out, start, length, place.fetch(frac)))
+            place.plan(ne, ANALYTIC_TILE, cfg.device.e_tile).dispatch(
+                lambda piece, e, th, b: analytic_group_fractions(
+                    e, th, b, prep.extra["u"], bounds[piece.k], prep.extra["law"], clamp
+                ),
+                out, pending, prep.e, prep.extra["theta"], prep.extra["b"],
+            )
         with RunMetrics.span_or_null(metrics, "wait.chi"):
             place.land(pending, "chi")
         return out
@@ -55,35 +53,21 @@ def _law_fractions(prep, gs, cfg, place: rows_mod.Placement, metrics=None) -> np
         raise AceFormatError(f"chi: unsupported spectrum kind {prep.kind!r}")
     k16 = unionize.bucket_pow2(prep.e_knots.shape[1])
     kn = unionize.pad_to(prep.e_knots, k16, axis=1)
-    pd = unionize.pad_to(prep.pdf, k16, axis=1)
     # per-row group-band windows: a spectrum's support is its knot range;
     # narrow rows copy back (T, B) instead of dense G-wide fraction rows,
     # wide rows keep the dense dispatch (banding.partition)
-    subsets = _band_subsets(
-        banding.partition(kn[:, 0], kn[:, -1], gs.bounds) if clamp else None, ne, gs.ng, gs
+    banding.dispatch(
+        place, banding.partition(kn[:, 0], kn[:, -1], gs.bounds) if clamp else None, gs.bounds,
+        TABULAR_TILE, cfg.device.e_tile, out[:, None, :],
+        lambda piece, kn, pd, win: tabular_group_fractions(
+            kn, pd, bounds[piece.k] if win is None else win, clamp
+        )[:, None],
+        kn, unionize.pad_to(prep.pdf, k16, axis=1),
+        metrics=metrics, family="chi",
     )
-    pending = []
-    finals = []
-    with RunMetrics.span_or_null(metrics, "dispatch.chi"):
-        for idx, gw, g0s, b_rows in subsets:
-            plan = place.plan(idx.size, 1024, cfg.device.e_tile)
-            kn_d, pd_d = plan.put(kn[idx]), plan.put(pd[idx])
-            b_d = None if b_rows is None else plan.put(b_rows)
-            buf = np.empty((idx.size, gw))
-            finals.append((idx, g0s, buf))
-            for k, sl, start, length in plan.pieces:
-                with place.shard(k):
-                    frac = tabular_group_fractions(
-                        kn_d[k][sl], pd_d[k][sl], bounds[k] if b_d is None else b_d[k][sl], clamp
-                    )
-                    pending.append((buf, start, length, place.fetch(frac)))
-    with RunMetrics.span_or_null(metrics, "wait.chi"):
-        place.land(pending, "chi")
-    for idx, g0s, buf in finals:
-        out[idx] = banding.densify(buf[:, None, :], g0s, gs.ng)[:, 0, :]
     # ND > 0 delta lines: their l=0 contribution is the line probability
     # in the containing group (ops.continuum.discrete_lines_moments l=0)
-    _add_discrete_lines(out[:, None, :], prep, gs, cfg, place)
+    add_discrete_lines(out[:, None, :], prep, gs, cfg, place)
     return out
 
 
@@ -117,7 +101,7 @@ def _batched_law_fractions(preps, gs, cfg, place: rows_mod.Placement, metrics=No
             f = frac_all[off : off + n]
             if preps[i].extra.get("disc") is not None:
                 f = f.copy()  # the pooled buffer slice is shared
-                _add_discrete_lines(f[:, None, :], preps[i], gs, cfg, place)
+                add_discrete_lines(f[:, None, :], preps[i], gs, cfg, place)
             out[i] = f
             off += n
     return out

@@ -27,7 +27,11 @@ from ndpp_tpu_torch.parallel import rows as rows_mod
 from ndpp_tpu_torch.utils.errors import AceFormatError, NdppError
 from ndpp_tpu_torch.utils.metrics import RunMetrics
 
-_CONTINUUM_TILE = 256  # rows per cm_moments_pointwise dispatch: one kernel launch on the card, chunked on the CPU
+# Rows per shard of one dispatch at the default device.e_tile = 512 (each
+# scales with e_tile: parallel.rows.tile_for), by op family
+ANALYTIC_TILE = 4096  # analytic_group_fractions and discrete_lines_moments
+TABULAR_TILE = 1024  # lab_tabular_moments and tabular_group_fractions
+CM_TILE = 256  # cm_moments_pointwise: one kernel launch on the card, chunked on the CPU
 
 # The CM path's outer w-panels end at every group boundary of the row's
 # window ("panels"): each panel's integrand is analytic, so its GL rule
@@ -116,9 +120,10 @@ def _law_moments(
     law: (ENDF law, frame), the key the metrics' counters file the rows'
     outer panels under.
 
-    Each family's cap (4096, 1024, _CONTINUUM_TILE) is rows per shard at
-    the default device.e_tile = 512 and scales with it, so the driver's
-    device-OOM retry (which halves e_tile) shrinks every family's tiles.
+    Each family's cap (ANALYTIC_TILE, TABULAR_TILE, CM_TILE) is rows per
+    shard at the default device.e_tile = 512 and scales with it, so the
+    driver's device-OOM retry (which halves e_tile) shrinks every family's
+    tiles.
 
     ksel_override: the windowed-knot selection bound, already quantized —
     passed by the pooled path (batched_continuum_moments), whose
@@ -134,16 +139,14 @@ def _law_moments(
 
     if prep.kind == "lab-analytic":
         law = prep.extra["law"]
-        plan = place.plan(ne, 4096, e_tile)
         pending = []
         with RunMetrics.span_or_null(metrics, "dispatch.continuum"):
-            e_d, th_d, b_d = (plan.put(a) for a in (prep.e, prep.extra["theta"], prep.extra["b"]))
-            for k, sl, start, length in plan.pieces:
-                with place.shard(k):
-                    frac = analytic_group_fractions(
-                        e_d[k][sl], th_d[k][sl], b_d[k][sl], prep.extra["u"], bounds[k], law, clamp
-                    )
-                    pending.append((out[:, 0, :], start, length, place.fetch(frac)))
+            place.plan(ne, ANALYTIC_TILE, e_tile).dispatch(
+                lambda piece, e, th, b: analytic_group_fractions(
+                    e, th, b, prep.extra["u"], bounds[piece.k], law, clamp
+                ),
+                out[:, 0, :], pending, prep.e, prep.extra["theta"], prep.extra["b"],
+            )
         with RunMetrics.span_or_null(metrics, "wait.continuum"):
             place.land(pending, "continuum")
         return out  # isotropic lab: moments l >= 1 vanish
@@ -151,41 +154,25 @@ def _law_moments(
     if prep.kind == "lab-tabular":
         k16 = unionize.bucket_pow2(prep.e_knots.shape[1])
         kn = unionize.pad_to(prep.e_knots, k16, axis=1)
-        pd = unionize.pad_to(prep.pdf, k16, axis=1)
-        mm = unionize.pad_to(prep.mom_knots, k16, axis=1)
         # per-row group-band windows: the outgoing support is the knot
         # range; narrow rows copy back (T, L+1, B) instead of dense G-wide
         # rows (banding.partition: wide rows keep the dense dispatch)
-        subsets = _band_subsets(
-            banding.partition(kn[:, 0], kn[:, -1], gs.bounds) if clamp else None, ne, ng, gs
+        banding.dispatch(
+            place, banding.partition(kn[:, 0], kn[:, -1], gs.bounds) if clamp else None, gs.bounds,
+            TABULAR_TILE, e_tile, out,
+            lambda piece, kn, pd, mm, win: lab_tabular_moments(
+                kn, pd, mm, bounds[piece.k] if win is None else win, order, 8, clamp
+            ),
+            kn, unionize.pad_to(prep.pdf, k16, axis=1), unionize.pad_to(prep.mom_knots, k16, axis=1),
+            metrics=metrics, family="continuum",
         )
-        pending = []
-        finals = []
-        with RunMetrics.span_or_null(metrics, "dispatch.continuum"):
-            for idx, gw, g0s, b_rows in subsets:
-                plan = place.plan(idx.size, 1024, e_tile)
-                kn_d, pd_d, mm_d = (plan.put(a[idx]) for a in (kn, pd, mm))
-                b_d = None if b_rows is None else plan.put(b_rows)
-                buf = np.empty((idx.size, order + 1, gw))
-                finals.append((idx, g0s, buf))
-                for k, sl, start, length in plan.pieces:
-                    with place.shard(k):
-                        res = lab_tabular_moments(
-                            kn_d[k][sl], pd_d[k][sl], mm_d[k][sl], bounds[k] if b_d is None else b_d[k][sl],
-                            order, 8, clamp,
-                        )
-                        pending.append((buf, start, length, place.fetch(res)))
-        with RunMetrics.span_or_null(metrics, "wait.continuum"):
-            place.land(pending, "continuum")
-        for idx, g0s, buf in finals:
-            out[idx] = banding.densify(buf, g0s, ng)
-        _add_discrete_lines(out, prep, gs, cfg, place)
+        add_discrete_lines(out, prep, gs, cfg, place)
         return out
 
     if prep.kind in ("cm-kalbach", "cm-tabular", "cm-nbody"):
         angular = {"cm-kalbach": "kalbach", "cm-tabular": "tabular", "cm-nbody": "isotropic"}[prep.kind]
         energy = "nbody" if prep.kind == "cm-nbody" else "tabular"
-        # operands of the op, by name; the ones a law kind does not read stay None
+        # operands of the op, by name, in cm_piece's order; the ones a law kind does not read stay None
         host: dict[str, np.ndarray | None] = dict.fromkeys(("kn", "pd", "rr", "aa", "mup", "emax"))
         muk = None
         kmu = 0
@@ -231,83 +218,49 @@ def _law_moments(
             part = banding.partition(*banding.support_cm(prep.e, awr, sup_kn), gs.bounds)
         else:
             part = None
-        subsets = _band_subsets(part, ne, ng, gs)
         # Tabular-angle payloads carry data-knot-crossing C^1 kinks whose
         # closed-form w-images are outer panel edges too (cross_edges).
         tab = angular == "tabular"
         nq_w, nq_y = cm_quadrature(angular, order)
         sy = cont_ops.inner_panel_count(ke, ksel, angular, kmu)
         budget = cont_ops.CHUNK_BUDGET_BYTES * e_tile // 512  # shrinks with the OOM retry's e_tile
-        pending = []
-        finals = []
+
+        def cm_piece(piece, e, kn, pd, rr, aa, mup, emax, win):
+            b = bounds[piece.k] if win is None else win
+            npan = cont_ops.outer_panel_count(ke, b.shape[-1] - 1, angular, kmu, CM_GROUP_SPLIT, tab)
+            # outer panels per pass of the plain (CPU) path; the CUDA kernel takes the tile whole
+            chunk = cont_ops.chunk_for(piece.length, nq_w, nq_y, sy, npan, budget)
+            if metrics is not None:
+                metrics.continuum_outer_panels[law] += piece.length * npan
+                metrics.continuum_chunks[chunk] += 1
+            return cm_moments_pointwise(
+                e, kn, pd, rr, aa, None if muk is None else muk[piece.k], mup, emax, float(prep.nbody_expo or 0.0),
+                b, awr, order, nq_w, nq_y, angular, energy, clamp, chunk, ksel, CM_GROUP_SPLIT, tab,
+                lanes=cont_ops.cm_tile_lanes(piece.tile, npan * nq_w, place.devices[piece.k]),
+            )
+
         with RunMetrics.span_or_null(metrics, "continuum.kernel"):
-            with RunMetrics.span_or_null(metrics, "dispatch.continuum"):
-                for idx, gw, g0s, b_rows in subsets:
-                    plan = place.plan(idx.size, _CONTINUUM_TILE, e_tile)
-                    e_d = plan.put(prep.e[idx])
-                    dev = {name: None if a is None else plan.put(a[idx]) for name, a in host.items()}
-                    b_d = None if b_rows is None else plan.put(b_rows)
-                    buf = np.empty((idx.size, order + 1, gw))
-                    finals.append((idx, g0s, buf))
-                    npan = cont_ops.outer_panel_count(ke, gw, angular, kmu, CM_GROUP_SPLIT, tab)
-                    if metrics is not None:
-                        metrics.continuum_outer_panels[law] += idx.size * npan
-                    for k, sl, start, length in plan.pieces:
-                        cut = {name: None if a is None else a[k][sl] for name, a in dev.items()}
-                        # outer panels per pass of the plain (CPU) path; the CUDA kernel takes the tile whole
-                        chunk = cont_ops.chunk_for(length, nq_w, nq_y, sy, npan, budget)
-                        if metrics is not None:
-                            metrics.continuum_chunks[chunk] += 1
-                        with place.shard(k):
-                            res = cm_moments_pointwise(
-                                e_d[k][sl], cut["kn"], cut["pd"], cut["rr"], cut["aa"],
-                                None if muk is None else muk[k], cut["mup"], cut["emax"],
-                                float(prep.nbody_expo or 0.0),
-                                bounds[k] if b_d is None else b_d[k][sl],
-                                awr, order, nq_w, nq_y, angular, energy, clamp, chunk, ksel, CM_GROUP_SPLIT, tab,
-                                lanes=cont_ops.cm_tile_lanes(plan.tile_rows(start), npan * nq_w, place.devices[k]),
-                            )
-                            pending.append((buf, start, length, place.fetch(res)))
-            with RunMetrics.span_or_null(metrics, "wait.continuum"):
-                place.land(pending, "continuum")
-        for idx, g0s, buf in finals:
-            out[idx] = banding.densify(buf, g0s, ng)
+            banding.dispatch(
+                place, part, gs.bounds, CM_TILE, e_tile, out, cm_piece, prep.e, *host.values(),
+                metrics=metrics, family="continuum",
+            )
         return out
 
     raise NdppError(f"unknown continuum preparation kind {prep.kind!r}")
 
 
-def _band_subsets(part, ne: int, ng: int, gs):
-    """Dispatch subsets [(row idx, out width, g0 | None, window bounds | None)].
-
-    part: banding.partition result. One banded subset (narrow rows) plus
-    one dense subset (wide rows), or a single dense subset covering all.
-    """
-    if part is None:
-        return [(np.arange(ne), ng, None, None)]
-    narrow, b_w, g0f = part
-    nidx = np.nonzero(narrow)[0]
-    subsets = [(nidx, b_w, g0f[nidx], banding.window_bounds(gs.bounds, g0f[nidx], b_w))]
-    didx = np.nonzero(~narrow)[0]
-    if didx.size:
-        subsets.append((didx, ng, None, None))
-    return subsets
-
-
-def _add_discrete_lines(out: np.ndarray, prep: ContinuumPrepared, gs, cfg, place: rows_mod.Placement) -> None:
+def add_discrete_lines(out: np.ndarray, prep: ContinuumPrepared, gs, cfg, place: rows_mod.Placement) -> None:
     """Add the ND>0 delta-line contribution (host/prep_continuum.discrete_line_rows)."""
     disc = prep.extra.get("disc")
     if disc is None:
         return
-    plan = place.plan(disc[0].shape[0], 4096, cfg.device.e_tile)
-    e_d, p_d, am_d = (plan.put(a) for a in disc)
     bounds = place.put_replicated(gs.bounds)
     lines = np.empty_like(out)
     pending = []
-    for k, sl, start, length in plan.pieces:
-        with place.shard(k):
-            res = discrete_lines_moments(e_d[k][sl], p_d[k][sl], am_d[k][sl], bounds[k], cfg.clamp_outside)
-            pending.append((lines, start, length, place.fetch(res)))
+    place.plan(disc[0].shape[0], ANALYTIC_TILE, cfg.device.e_tile).dispatch(
+        lambda piece, e, p, am: discrete_lines_moments(e, p, am, bounds[piece.k], cfg.clamp_outside),
+        lines, pending, *disc,
+    )
     place.land(pending, "continuum")
     out += lines
 
@@ -408,7 +361,7 @@ def batched_continuum_moments(
             mom = mom_all[off : off + prep.e.size]
             if kind == "lab-tabular" and prep.extra.get("disc") is not None:
                 mom = mom.copy()  # the pooled buffer slice is shared
-                _add_discrete_lines(mom, prep, gs, cfg, place)
+                add_discrete_lines(mom, prep, gs, cfg, place)
             totals[ri] += prep.applicability[:, None, None] * mom
             off += prep.e.size
     return totals

@@ -152,19 +152,12 @@ def _tiled_twobody_multi(preps, bounds, order, nq, tile_cap, metrics, clamp, pla
             for i in idxs:
                 slices.append((buf, g0_all, i, off))
                 off += preps[i].e.size
-            e_d, kn_d, pd_d, c1_d, c2_d, aw_d = (plan.put(a) for a in (e_all, kn_all, pd_all, c1_all, c2_all, aw_all))
-            br_d = None if bounds_rows is None else plan.put(bounds_rows)
-            for k, sl, start, length in plan.pieces:
-                with place.shard(k):
-                    res = twobody_moments(
-                        e_d[k][sl], kn_d[k][sl], pd_d[k][sl],
-                        b[k] if br_d is None else br_d[k][sl],
-                        c1_d[k][sl], c2_d[k][sl], aw_d[k][sl],
-                        order,
-                        nq,
-                        clamp,
-                    )
-                    pending.append((buf, start, length, place.fetch(res)))
+            plan.dispatch(
+                lambda piece, e, kn, pd, c1, c2, aw, br: twobody_moments(
+                    e, kn, pd, b[piece.k] if br is None else br, c1, c2, aw, order, nq, clamp
+                ),
+                buf, pending, e_all, kn_all, pd_all, c1_all, c2_all, aw_all, bounds_rows,
+            )
     with RunMetrics.span_or_null(metrics, "wait.twobody"):
         place.land(pending, "twobody")  # one wait per shard, for every piece's copy
     for buf, g0_all, i, off in slices:

@@ -146,14 +146,14 @@ def apply_freegas(
         pending = []
         with RunMetrics.span_or_null(metrics, "dispatch.freegas"):
             bounds_pw = place.put_replicated(bw)
-            e_d = plan.put(e_sub)
             chunk = freegas_ops.chunk_for(plan.piece_rows, CHUNK_BUDGET_BYTES * e_tile // 512)
-            for sh, sl, start, length in plan.pieces:
-                lanes = freegas_ops.sab_tile_lanes(plan.tile_rows(start), place.devices[sh])
-                with place.shard(sh):
-                    part = freegas_moments_sab(e_d[sh][sl], nuc.awr, kt, bounds_pw[sh], order, chunk=chunk,
-                                               lanes=lanes)
-                    pending.append((raw, start, length, place.fetch(part)))
+            plan.dispatch(
+                lambda piece, e: freegas_moments_sab(
+                    e, nuc.awr, kt, bounds_pw[piece.k], order, chunk=chunk,
+                    lanes=freegas_ops.sab_tile_lanes(piece.tile, place.devices[piece.k]),
+                ),
+                raw, pending, e_sub,
+            )
         if elastic0k is not None and sub_idx is None and n_lo >= elastic0k[2]:
             zero_k_preps.append(None)  # exact rows: slice the main pool's elastic output
         else:

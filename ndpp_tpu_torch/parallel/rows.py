@@ -18,13 +18,16 @@ set's inputs go to each shard once (RowPlan.put: that shard's rows of every
 tile in one copy) and its pieces are slices of them; each piece's result
 starts its copy to pinned host memory as soon as it is enqueued
 (Placement.fetch), and the host waits once per dispatch set, on every
-shard's stream, before it reads any result (Placement.land).
+shard's stream, before it reads any result (Placement.land). Every family
+driver moves its rows through RowPlan.dispatch, which does the put, the
+pieces and the fetch; the driver chooses where it lands.
 """
 
 from __future__ import annotations
 
 import contextlib
-from collections.abc import Sequence
+from collections.abc import Callable, Sequence
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -144,38 +147,43 @@ class Placement:
             buf[start : start + length] = host.numpy()
 
 
+class Piece(NamedTuple):
+    """One shard's slice of one tile: rows [start, start + length) of the
+    dispatch set are rows `sl` of the tensors RowPlan.put made for shard k.
+    tile: the rows of the whole tile, all shards' pieces of it together
+    (what a kernel's lanes are chosen from, so that a split tile sums as it
+    does on one device)."""
+
+    k: int
+    sl: slice
+    start: int
+    length: int
+    tile: int
+
+
 class RowPlan:
     """A dispatch set of n rows over a placement: tiles of `tile` rows (the
     last one shorter), each cut into nd contiguous slices, one per shard.
 
-    pieces: [(shard k, slice of shard k's rows, start, length)] in dispatch
-    order; rows [start, start + length) of the set are rows `slice` of the
-    tensors put() made for shard k. With one device the pieces are the tiles
-    and shard 0 holds every row in order."""
+    pieces: the Pieces in dispatch order. With one device the pieces are the
+    tiles and shard 0 holds every row in order."""
 
     def __init__(self, place: Placement, n: int, tile: int):
         self.place = place
         nd = place.nd
         self.piece_rows = -(-tile // nd)  # the most rows one piece holds
-        self.pieces: list[tuple[int, slice, int, int]] = []
-        self._tiles = list(tile_indices(n, tile))
+        self.pieces: list[Piece] = []
         spans: list[list[tuple[int, int]]] = [[] for _ in range(nd)]
         held = [0] * nd
-        for start, length in self._tiles:
+        for start, length in tile_indices(n, tile):
             per = -(-length // nd)
             for k in range(nd):
                 lo, hi = min(k * per, length), min((k + 1) * per, length)
                 if hi > lo:
-                    self.pieces.append((k, slice(held[k], held[k] + hi - lo), start + lo, hi - lo))
+                    self.pieces.append(Piece(k, slice(held[k], held[k] + hi - lo), start + lo, hi - lo, length))
                     spans[k].append((start + lo, start + hi))
                     held[k] += hi - lo
         self._spans = spans
-
-    def tile_rows(self, start: int) -> int:
-        """The rows of the dispatch tile that holds row `start` of the set, all
-        shards' pieces of it together (what a kernel's lanes are chosen from,
-        so that a split tile sums as it does on one device)."""
-        return next(length for t0, length in reversed(self._tiles) if t0 <= start)
 
     def put(self, arr) -> list[torch.Tensor | None]:
         """Host rows (n, ...) -> float64 tensors, one per shard on its
@@ -193,6 +201,20 @@ class RowPlan:
             with self.place.shard(k):
                 out.append(torch.as_tensor(rows, device=self.place.devices[k]))
         return out
+
+    def dispatch(self, op: Callable, out: np.ndarray, pending: list, *rows) -> None:
+        """Enqueue op over every piece and start each result's copy back.
+
+        rows: host operands (n, ...), put for the shards once each; None
+        stays None. op(piece, *row slices) runs under the piece's shard, in
+        pieces order; what it returns lands in rows [start, start + length)
+        of `out`. This appends those copies to `pending` and does not land:
+        the caller's Placement.land waits once for all of a set's pieces."""
+        held = [None if a is None else self.put(a) for a in rows]
+        for piece in self.pieces:
+            with self.place.shard(piece.k):
+                res = op(piece, *(None if d is None else d[piece.k][piece.sl] for d in held))
+                pending.append((out, piece.start, piece.length, self.place.fetch(res)))
 
 
 def as_placement(where: Placement | str | torch.device) -> Placement:

@@ -86,20 +86,6 @@ def match_tables(tables: list[ThermalTable], temps_k: list[float]):
     return out
 
 
-def _split_rows(place: rows_mod.Placement, pending: list, shape: tuple, op, *rows) -> np.ndarray:
-    """One untiled dispatch of op over `rows` (host arrays sharing their
-    first axis), split over the shards of `place`: op(k, *row slices) runs
-    under shard k. Returns the host buffer of `shape` that place.land fills
-    from the pending copies this appends."""
-    buf = np.empty(shape)
-    plan = place.whole(shape[0])
-    dev = [plan.put(a) for a in rows]
-    for k, sl, start, length in plan.pieces:
-        with place.shard(k):
-            pending.append((buf, start, length, place.fetch(op(k, *(d[k][sl] for d in dev)))))
-    return buf
-
-
 def apply_sab(
     scatter: np.ndarray, nuc, gs, cfg, e_grid: np.ndarray, tables, place: rows_mod.Placement | torch.device,
     metrics=None,
@@ -145,10 +131,10 @@ def apply_sab(
         with RunMetrics.span_or_null(metrics, "dispatch.sab"):
             if prep.kind == "continuous":
                 # at the table's incident energies; lin-log onto the rows below
-                f_inel = _split_rows(
-                    place, pending, (prep.e_knots.shape[0], order + 1, gs.ng),
-                    lambda k, kn, pdf, am: thermal_continuous_moments(kn, pdf, am, bounds_d[k], order),
-                    prep.e_knots, prep.pdf, prep.am,
+                f_inel = np.empty((prep.e_knots.shape[0], order + 1, gs.ng))
+                place.whole(f_inel.shape[0]).dispatch(
+                    lambda piece, kn, pdf, am: thermal_continuous_moments(kn, pdf, am, bounds_d[piece.k], order),
+                    f_inel, pending, prep.e_knots, prep.pdf, prep.am,
                 )
             else:
                 # discrete lines are deltas: interpolating PLACED (L+1, G)
@@ -165,28 +151,30 @@ def apply_sab(
                     e_lines = np.broadcast_to(prep.e_out[0], (n_rows,) + prep.e_out.shape[1:])
                     am_lines = np.broadcast_to(prep.am_lines[0], (n_rows,) + prep.am_lines.shape[1:])
                 w_lines = place.put_replicated(prep.w_lines)
-                f_inel = _split_rows(
-                    place, pending, (n_rows, order + 1, gs.ng),
-                    lambda k, e_out, am: thermal_discrete_moments(
-                        e_out, w_lines[k], am, bounds_d[k], clamp=cfg.clamp_outside
+                f_inel = np.empty((n_rows, order + 1, gs.ng))
+                place.whole(n_rows).dispatch(
+                    lambda piece, e_out, am: thermal_discrete_moments(
+                        e_out, w_lines[piece.k], am, bounds_d[piece.k], clamp=cfg.clamp_outside
                     ),
-                    e_lines, am_lines,
+                    f_inel, pending, e_lines, am_lines,
                 )
             # elastic channel, exact placement per row
             f_el = None
             if prep.elastic_kind == "coherent":
                 edges, s_b = place.put_replicated(prep.e_el), place.put_replicated(prep.bragg_s)
-                f_el = _split_rows(
-                    place, pending, (n_rows, order + 1, gs.ng),
-                    lambda k, e: coherent_elastic_moments(e, edges[k], s_b[k], bounds_d[k], order),
-                    e_rows,
+                f_el = np.empty((n_rows, order + 1, gs.ng))
+                place.whole(n_rows).dispatch(
+                    lambda piece, e: coherent_elastic_moments(
+                        e, edges[piece.k], s_b[piece.k], bounds_d[piece.k], order
+                    ),
+                    f_el, pending, e_rows,
                 )
             elif prep.elastic_kind == "incoherent":
                 fvec = interp_rows_loglin(e_rows, prep.e_el, prep.am_el)  # (NR, L+1)
-                f_el = _split_rows(
-                    place, pending, (n_rows, order + 1, gs.ng),
-                    lambda k, f, e: incoherent_elastic_placement(f, e, bounds_d[k]),
-                    fvec, e_rows,
+                f_el = np.empty((n_rows, order + 1, gs.ng))
+                place.whole(n_rows).dispatch(
+                    lambda piece, f, e: incoherent_elastic_placement(f, e, bounds_d[piece.k]),
+                    f_el, pending, fvec, e_rows,
                 )
         with RunMetrics.span_or_null(metrics, "wait.sab"):
             place.land(pending, "sab")

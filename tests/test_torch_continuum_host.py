@@ -159,7 +159,7 @@ def test_tiles_and_chunk_shrink_with_e_tile():
     one = Placement(["cpu"])  # the driver's tiles: Placement.plan at the family's cap
 
     def spans(plan):
-        return [(start, length) for _, _, start, length in plan.pieces]
+        return [(p.start, p.length) for p in plan.pieces]
 
     assert one.plan(1000, 256, 512).piece_rows == 256
     plan = one.plan(1000, 256, 256)

@@ -110,18 +110,69 @@ def test_tile_for_and_the_plan_cut_every_tile_into_contiguous_slices():
     place = rows_mod.Placement(["cpu"] * 3)
     plan = place.plan(100, 16, 512)
     assert plan.piece_rows == 16
-    covered = sorted((start, length) for _, _, start, length in plan.pieces)
+    covered = sorted((p.start, p.length) for p in plan.pieces)
     assert [s for s, _ in covered] == list(np.cumsum([0] + [n for _, n in covered[:-1]]))
     assert sum(n for _, n in covered) == 100
+    # three tiles of 48, 48 and 4 rows; each piece knows the rows of its whole tile
+    assert [p.tile for p in plan.pieces] == [48] * 6 + [4] * 2
     rows = np.arange(100.0)[:, None] * np.ones(3)
     held = plan.put(rows)
-    for k, sl, start, length in plan.pieces:
+    for k, sl, start, length, _ in plan.pieces:
         np.testing.assert_array_equal(held[k][sl].numpy(), rows[start : start + length])
     one = rows_mod.Placement(["cpu"]).plan(100, 16, 512)
-    assert [(s, n) for _, _, s, n in one.pieces] == [(s, min(16, 100 - s)) for s in range(0, 100, 16)]
+    assert [(p.start, p.length) for p in one.pieces] == [(s, min(16, 100 - s)) for s in range(0, 100, 16)]
     assert one.put(rows)[0].shape == (100, 3)
     # a placement of one device has no stream of its own: the current stream
     assert rows_mod.Placement(["cpu", "cpu"]).streams == (None, None)
+
+
+def _toy_dispatch(nd: int, rows: np.ndarray, out: np.ndarray, pending: list, seen: list) -> rows_mod.RowPlan:
+    """A toy op over a plan of nd CPU shards at 16 rows a tile: each result
+    row is its operand row scaled by a replicated table (read as
+    table[piece.k]) plus its own row number (from piece.start and
+    piece.length), so it depends on the row alone, not on the shard."""
+    place = rows_mod.Placement(["cpu"] * nd)
+    plan = place.plan(rows.shape[0], 16, 512)
+    table = place.put_replicated(np.array([3.0]))
+
+    def op(piece, x, nothing):
+        seen.append((piece, nothing))
+        at = torch.arange(piece.start, piece.start + piece.length, dtype=torch.float64)
+        return x * table[piece.k] + at[:, None]
+
+    plan.dispatch(op, out, pending, rows, None)
+    return plan
+
+
+@pytest.mark.parametrize("nd", [1, 4])
+def test_dispatch_fills_out_with_the_same_bytes_on_one_and_four_shards(nd):
+    rows = np.random.default_rng(3).uniform(-1.0, 1.0, (100, 5))
+    want = rows * 3.0 + np.arange(100.0)[:, None]
+    out, pending, seen = np.zeros_like(rows), [], []
+    plan = _toy_dispatch(nd, rows, out, pending, seen)
+    assert [piece for piece, _ in seen] == plan.pieces  # every piece once, in pieces order
+    assert {piece.k for piece, _ in seen} == set(range(nd))
+    assert [(b is out, start, length) for b, start, length, _ in pending] == [
+        (True, p.start, p.length) for p in plan.pieces
+    ]
+    plan.place.land(pending, "toy")
+    assert out.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("nd", [1, 4])
+def test_dispatch_hands_a_none_operand_to_the_op_as_none(nd):
+    seen = []
+    _toy_dispatch(nd, np.ones((40, 2)), np.zeros((40, 2)), [], seen)
+    assert seen and all(nothing is None for _, nothing in seen)
+
+
+def test_dispatch_appends_to_pending_and_does_not_land():
+    earlier = (np.zeros((1, 2)), 0, 1, torch.ones(1, 2, dtype=torch.float64))
+    out, pending = np.full((40, 2), -7.0), [earlier]
+    plan = _toy_dispatch(4, np.ones((40, 2)), out, pending, [])
+    assert pending[0] is earlier and len(pending) == 1 + len(plan.pieces)
+    assert (out == -7.0).all()  # nothing landed: the caller's land does that
+    assert (earlier[0] == 0.0).all()
 
 
 def test_resolve_placement():
